@@ -1,0 +1,482 @@
+"""Drive the PyTorch/CUDA port once on an NVIDIA GPU and check it.
+
+    python3 chip_smoke.py            # the whole check (one GPU)
+    python3 chip_smoke.py --kernels  # build + kernel parity and timing only;
+                                     # its records carry "launches": null
+
+Phases, one line each, in order:
+
+1. device   -- the card's name and power limit (nvidia-smi), which of PIL,
+               pandas and matplotlib import; requires torch.cuda.is_available().
+2. build    -- compiles ``configurable_spectrograms_torch/csrc/*.cu`` with nvcc.
+3. kernel   -- each kernel against its plain PyTorch version on the card at
+               8192x64x128 and 2048x32x48 (seeded inputs with NaN and +/-inf
+               cells, t_valid < T, partial pitch masks, a time window, both z
+               scales), with CUDA-event timings (median of 20 after warm-up).
+4. e2e      -- a synthetic archive (3 orbits at 2048x32x48, 1 orbit at
+               8192x64x128, 4 instruments): the extrema pre-pass and the
+               log/log per-orbit render on the device, then again with
+               CST_RENDER_BACKEND=host; every panel's bounds must agree bit
+               for bit and its index cells exactly, or one bin apart on a
+               provable bin boundary; both kernels must have launched during
+               the device run.
+
+Any failure raises (non-zero exit).  The last three lines are the card's
+nvidia-smi line, a JSON line with one record per kernel, and the result
+``{"ok": true, "device": {...}}``.  Needs no network; the kernels are built
+from the checkout into ``build/cst_torch/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+SHAPES = ((8192, 64, 128), (2048, 32, 48))
+REPLACES = {
+    "collapse": "configurable_spectrograms_tpu/ops/pallas_kernels.py:32",
+    "fused_quantize": "configurable_spectrograms_tpu/ops/pallas_kernels.py:44",
+}
+SOURCES = {
+    "collapse": "configurable_spectrograms_torch/csrc/collapse.cu",
+    "fused_quantize": "configurable_spectrograms_torch/csrc/fused_quantize.cu",
+}
+H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA's data sheet (SXM, 700 W)
+
+
+def require(ok: bool, message: str) -> None:
+    """Fail the run (a plain ``assert`` would vanish under ``python -O``)."""
+    if not ok:
+        raise AssertionError(message)
+
+
+def say(phase: str, **fields) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of ``fn()`` on the current stream (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def kernel_inputs(T: int, A: int, E: int, seed: int):
+    """One cube and 8 lanes (4 pitch masks x full/zoom windows), as a render bucket."""
+    rng = np.random.default_rng(seed)
+    cube = (rng.random((T, A, E), dtype=np.float32) * 50.0).astype(np.float32)
+    cube[rng.random(cube.shape) < 0.02] = np.nan
+    cube[rng.random(cube.shape) < 0.0005] = np.inf
+    cube[rng.random(cube.shape) < 0.0005] = -np.inf
+    cube[rng.random(cube.shape) < 0.01] = 0.0
+    L = 8
+    masks = np.zeros((L, A), bool)
+    pitch = np.linspace(0.0, 360.0, A, endpoint=False)
+    cats = [(pitch <= 30) | (pitch >= 330), (pitch >= 150) & (pitch <= 210),
+            ((pitch >= 40) & (pitch <= 140)) | ((pitch >= 210) & (pitch <= 330)), np.ones(A, bool)]
+    t_valid = T - 37
+    t_start = np.zeros(L, np.int32)
+    t_count = np.full(L, t_valid, np.int32)
+    for j in range(L):
+        masks[j] = cats[j % 4]
+        if j >= 4:  # zoom column: an interior window
+            t_start[j], t_count[j] = T // 3, T // 4
+    e_valid = np.ones((L, E), bool)
+    e_valid[:, : E // 6] = False  # energies above the y range
+    return {
+        "cube": cube[None], "u_idx": np.zeros(L, np.int32), "masks": masks,
+        "t_valid": np.full(L, t_valid, np.int32), "t_start": t_start, "t_count": t_count,
+        "e_valid": e_valid,
+    }
+
+
+def check_kernels(device) -> dict:
+    """Kernel vs plain on the card at each shape; returns the record per kernel."""
+    import torch
+
+    from configurable_spectrograms_torch.ops import kernels as K
+
+    records = {}
+    for si, (T, A, E) in enumerate(SHAPES):
+        x = {k: torch.from_numpy(v).to(device) for k, v in kernel_inputs(T, A, E, seed=si).items()}
+        args = (x["cube"], x["u_idx"], x["masks"], x["t_valid"])
+        got = K.collapse_lanes(*args)
+        want = collapsed = K.collapse_lanes_plain(*args)
+        torch.cuda.synchronize()
+        nan_same = torch.equal(torch.isnan(got), torch.isnan(want))
+        fin = ~torch.isnan(want)
+        exact = bool(torch.equal(got[fin], want[fin]))
+        diff = (got[fin] - want[fin]).abs()
+        diff = torch.where(torch.isnan(diff), torch.zeros_like(diff), diff)  # inf - inf
+        err = float(diff.max()) if diff.numel() else 0.0
+        ms = cuda_time_ms(lambda: K.collapse_lanes(*args))
+        plain_ms = cuda_time_ms(lambda: K.collapse_lanes_plain(*args), reps=10)
+        # Bytes the kernel moves: each lane reads its selected pitch slices, writes (T, E).
+        sel = int(x["masks"].sum())
+        read = T * E * 4 * sel
+        moved = read + 8 * T * E * 4
+        say("kernel", name="collapse", shape=f"{T}x{A}x{E}", lanes=8, exact=exact, nan_same=nan_same,
+            max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            read_GBps=f"{read / ms / 1e6:.1f}", hbm_share=f"{moved / (ms * 1e-3) / H100_BYTES_PER_S:.3f}")
+        require(exact and nan_same, f"collapse kernel differs from its plain version at {T}x{A}x{E}")
+        if si == 0:
+            records["collapse"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+        for z_scale in ("log", "linear"):
+            zb = np.tile(np.array([[2.0, 900.0]], np.float32), (8, 1))
+            zb[1] = (0.5, 40.0)
+            fargs = (x["cube"], x["u_idx"], x["masks"], x["e_valid"], x["t_valid"], x["t_start"],
+                     x["t_count"], torch.from_numpy(zb).to(device))
+            got = K.fused_quantize_lanes(*fargs, z_scale=z_scale)
+            want = K.fused_quantize_lanes_plain(*fargs, z_scale=z_scale)
+            torch.cuda.synchronize()
+            d = (got["idx"].int() - want["idx"].int()).abs()
+            n_diff = int((d > 0).sum())
+            max_bin = int(d.max())
+            vmin_ok = bool(torch.equal(got["vmin"], want["vmin"]))
+            nan_ok = bool(torch.equal(got["col_all_nan"], want["col_all_nan"]))
+            # Every cell one bin apart must sit on a provable bin boundary
+            # (the two float32 log10s, log10f and torch's, may round apart there).
+            n_boundary = 0
+            for j in torch.nonzero((d > 0).any(dim=2).any(dim=1)).flatten().tolist():
+                n_boundary += int(boundary_mask(collapsed[j].cpu().numpy(), float(want["vmin"][j]),
+                                                float(zb[j, 1]), z_scale, (d[j] > 0).cpu().numpy()).sum())
+            ms = cuda_time_ms(lambda: K.fused_quantize_lanes(*fargs, z_scale=z_scale))
+            plain_ms = cuda_time_ms(lambda: K.fused_quantize_lanes_plain(*fargs, z_scale=z_scale), reps=10)
+            moved = read + 8 * T * E * (4 + 4 + 1)  # + scratch write and re-read, uint8 out
+            say("kernel", name="fused_quantize", z=z_scale, shape=f"{T}x{A}x{E}", lanes=8,
+                cells_off_by_one=n_diff, of_them_on_a_bin_boundary=n_boundary, max_bin_diff=max_bin,
+                vmin_exact=vmin_ok, col_all_nan_exact=nan_ok, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                read_GBps=f"{(read + 8 * T * E * 4) / ms / 1e6:.1f}",
+                hbm_share=f"{moved / (ms * 1e-3) / H100_BYTES_PER_S:.3f}")
+            require(max_bin <= 1 and n_boundary == n_diff and vmin_ok and nan_ok,
+                    f"fused kernel outside its contract at {T}x{A}x{E} z={z_scale}")
+            if si == 0 and z_scale == "log":
+                records["fused_quantize"] = {"max_abs_err": float(max_bin), "ms": ms, "plain_ms": plain_ms}
+    return records
+
+
+def orbit_figures(paths: dict, df, orbit: int, extrema: dict | None) -> list:
+    """Every figure FAST_process_single_orbit renders for one log/log orbit."""
+    from configurable_spectrograms_torch.fast.constants import DEFAULT_INSTRUMENT_ORDER
+    from configurable_spectrograms_torch.fast.extrema import extrema_overrides
+    from configurable_spectrograms_torch.fast.plotting import (
+        FAST_plot_instrument_grid,
+        FAST_plot_pitch_angle_grid,
+    )
+
+    figs = []
+    for inst in DEFAULT_INSTRUMENT_ORDER:
+        for ymn, ymx, zmn, zmx in (extrema_overrides(extrema, inst, "log", "log"), (None,) * 4):
+            fig, _ = FAST_plot_pitch_angle_grid(
+                paths[inst], filtered_orbits_df=df, orbit_number=orbit, scale_function_y="log",
+                scale_function_z="log", show=False, colormap="inferno",
+                y_min=ymn, y_max=ymx, z_min=zmn, z_max=zmx)
+            figs.append(fig)
+    for ex in (extrema, None):
+        fig, _ = FAST_plot_instrument_grid(
+            paths, filtered_orbits_df=df, orbit_number=orbit, scale_function_y="log",
+            scale_function_z="log", show=False, colormap="inferno", global_extrema=ex)
+        figs.append(fig)
+    return figs
+
+
+def figure_panels(figs: list) -> list:
+    """The (tile_h, tile_w, panel) of every panel of *figs* at the save DPI."""
+    from configurable_spectrograms_torch.constants import FAST_SAVE_DPI
+    from configurable_spectrograms_torch.render.compositor import _Layout
+
+    out = []
+    for fig in figs:
+        lay = _Layout(fig, float(FAST_SAVE_DPI))
+        out += [(lay.tile_h, lay.tile_w, ax.panel) for ax in fig.axes if ax.panel is not None]
+    return out
+
+
+def render_all(panels: list) -> list:
+    from configurable_spectrograms_torch.render.dispatch import render_panels
+
+    by_tile: dict = {}
+    for k, (h, w, p) in enumerate(panels):
+        by_tile.setdefault((h, w), []).append(k)
+    results = [None] * len(panels)
+    for (h, w), ks in by_tile.items():
+        for k, r in zip(ks, render_panels([panels[k][2] for k in ks], h, w)):
+            results[k] = r
+    return results
+
+
+def boundary_mask(m: np.ndarray, vmin: float, vmax: float, z_scale: str, off: np.ndarray) -> np.ndarray:
+    """The ``off`` cells of the collapsed matrix *m* that provably sit on a bin boundary.
+
+    Recomputes the normalisation in float64 (the check of
+    tests/test_fuzz_parity.py): a cell counts when norm * 256 lies within a
+    few float32 ulps of an integer, where two float32 log10s, or a float32
+    against a float64 span, can round to neighbouring bins.
+    """
+    if not off.any():
+        return off
+    m = m.astype(np.float64)
+    if z_scale == "log":
+        lmin, lmax = np.log10(vmin), np.log10(vmax)
+        lw = np.log10(np.maximum(np.where(~np.isfinite(m) | (m <= 0), vmin, m), 1e-37))
+        bins = (lw - lmin) / (lmax - lmin) * 256.0
+        big = max(abs(lmin), abs(lmax), float(np.abs(lw[off]).max()))
+        tol = 256.0 * 6.0 * float(np.spacing(np.float32(big))) / (lmax - lmin)
+    else:
+        w = np.where(np.isposinf(m), vmax, np.where(np.isnan(m) | np.isneginf(m), vmin, m))
+        bins = (w - vmin) / (vmax - vmin) * 256.0
+        tol = max(1e-4, float(np.abs(bins[off]).max()) * 6.0e-7)
+    return (np.abs(bins - np.rint(bins)) <= tol) & off
+
+
+def compare_panels(panels: list, dev: list, host: list) -> tuple[int, int, int]:
+    """Device vs host: bounds bit for bit, index cells within one bin.
+
+    The index map is elementwise over the whole (T, E) matrix, so every
+    row the device brought back (all of them, or the rows the pixels
+    sample) is compared over the file's E columns.  A cell one bin apart
+    must sit on a bin boundary.  Returns (cells compared, cells one bin
+    apart, of those the cells on a bin boundary).
+    """
+    from configurable_spectrograms_torch.render.host_quantize import host_collapse
+
+    n_cells = n_off = n_boundary = 0
+    for (_, _, p), d, h in zip(panels, dev, host):
+        if "error" in h or "error" in d:
+            require(d.get("error") == h.get("error"), f"panel error: {d.get('error')!r} vs {h.get('error')!r}")
+            continue
+        for k in ("vmin", "vmax", "y0", "y1", "n_kept", "empty"):
+            # The device holds bounds in float32; the host's explicit bounds
+            # are the same values as Python floats.
+            a, b = np.float32(d[k]), np.float32(h[k])
+            require(np.array_equal(a, b, equal_nan=True), f"panel {k}: device {a!r} vs host {b!r}")
+        if h["empty"]:
+            continue
+        T, _, E = p.cube.shape
+        rows = d["idx_rows"][: d["idx"].shape[0]]
+        keep = rows < T
+        dv = d["idx"][keep][:, :E].astype(np.int32)
+        hv = h["idx"][rows[keep]].astype(np.int32)
+        diff = np.abs(dv - hv)
+        require(diff.size == 0 or int(diff.max()) <= 1, f"idx differs by {int(diff.max())} bins")
+        n_cells += diff.size
+        n_off += int((diff > 0).sum())
+        if (diff > 0).any():
+            m = host_collapse(p.cube, p.pitch_mask)[rows[keep]]
+            n_boundary += int(boundary_mask(m, float(h["vmin"]), float(h["vmax"]), p.z_scale, diff > 0).sum())
+    require(n_boundary == n_off, f"{n_off - n_boundary} of {n_off} index cells differ away from a bin boundary")
+    return n_cells, n_off, n_boundary
+
+
+def run_e2e(records: dict, small=SHAPES[1], big=SHAPES[0]) -> None:
+    import torch
+
+    from configurable_spectrograms_torch.constants import FAST_SAVE_DPI
+    from configurable_spectrograms_torch.data.cdf_utils import (
+        clear_dataset_cache,
+        load_fast_cdf_dataset,
+        load_filtered_orbits,
+    )
+    from configurable_spectrograms_torch.data.synthetic import synth_fast_archive
+    from configurable_spectrograms_torch.fast.constants import DEFAULT_INSTRUMENT_ORDER
+    from configurable_spectrograms_torch.fast.extrema import compute_global_extrema
+    from configurable_spectrograms_torch.fast.process_orbit import FAST_process_single_orbit
+    from configurable_spectrograms_torch.ops import kernels as K
+    from configurable_spectrograms_torch.render.figure import render_figures, save_image
+
+    try:
+        import PIL  # noqa: F401
+
+        have_pil = True
+    except ImportError as exc:
+        have_pil = False
+        say("e2e", composite_and_png="not run", why=f"PIL does not import ({exc})")
+
+    with tempfile.TemporaryDirectory(prefix="cst_chip_smoke_") as tmp:
+        root = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        mapping = synth_fast_archive(root, [100, 101, 102], n_time=small[0], n_angle=small[1],
+                                     n_energy=small[2], cusp_csv_path=os.path.join(tmp, "cusp.tsv"))
+        mapping.update(synth_fast_archive(root, [103], n_time=big[0], n_angle=big[1], n_energy=big[2],
+                                          compress="none", cusp_csv_path=os.path.join(tmp, "cusp_big.tsv")))
+        # One cusp table for all four orbits.
+        with open(os.path.join(tmp, "cusp.tsv")) as a, open(os.path.join(tmp, "cusp_big.tsv")) as b:
+            rows = a.read().rstrip("\n").splitlines() + b.read().rstrip("\n").splitlines()[1:]
+        with open(os.path.join(tmp, "cusp.tsv"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+        df = load_filtered_orbits(os.path.join(tmp, "cusp.tsv"))
+        say("e2e", step="synth_archive", seconds=f"{time.perf_counter() - t0:.2f}",
+            orbits=f"100-102@{'x'.join(map(str, small))},103@{'x'.join(map(str, big))}", instruments=4)
+
+        extrema = {}
+        render_s = {}
+        for backend in ("device", "host"):
+            os.environ["CST_RENDER_BACKEND"] = backend
+            clear_dataset_cache()  # each backend decodes the archive itself
+            t0 = time.perf_counter()
+            for paths in mapping.values():
+                for path in paths.values():
+                    load_fast_cdf_dataset(path)
+            say("e2e", backend=backend, decode_s=f"{time.perf_counter() - t0:.2f}", files=4 * len(mapping))
+            out_dir = os.path.join(tmp, f"plots_{backend}")
+            if backend == "device":
+                K.reset_launches()
+            t0 = time.perf_counter()
+            extrema[backend] = compute_global_extrema(
+                root, "log", "log", DEFAULT_INSTRUMENT_ORDER,
+                extrema_json_path=os.path.join(tmp, f"extrema_{backend}.json"))
+            torch.cuda.synchronize()
+            t_extrema = time.perf_counter() - t0
+            if backend == "device":
+                launches_extrema = dict(K.LAUNCHES)
+            if have_pil:
+                t0 = time.perf_counter()
+                per_orbit = []
+                for orbit in sorted(mapping):
+                    t1 = time.perf_counter()
+                    res = FAST_process_single_orbit(
+                        orbit, mapping[orbit], df, 6.25, "log", "log", DEFAULT_INSTRUMENT_ORDER,
+                        "inferno", out_dir, global_extrema=extrema[backend])
+                    torch.cuda.synchronize()
+                    per_orbit.append(f"{orbit}:{time.perf_counter() - t1:.2f}s")
+                    require(res["status"] == "ok", f"orbit {orbit}: {res}")
+                t_render = render_s[backend] = time.perf_counter() - t0
+                n_png = len(glob.glob(os.path.join(out_dir, "**", "*.png"), recursive=True))
+                say("e2e", backend=backend, extrema_s=f"{t_extrema:.2f}", render_s=f"{t_render:.2f}",
+                    pngs=n_png, per_orbit=",".join(per_orbit))
+            if backend == "device":
+                launches = dict(K.LAUNCHES)
+                say("e2e", backend="device", launches=json.dumps(launches),
+                    extrema_launches=json.dumps(launches_extrema))
+                require(launches_extrema["collapse"] > 0, "the extrema pre-pass launched no collapse kernel")
+                require(not have_pil or min(launches.values()) > 0,
+                        f"a kernel of the render path never launched: {launches}")
+                records["collapse"]["launches"] = launches["collapse"]
+                records["fused_quantize"]["launches"] = launches["fused_quantize"]
+        require(extrema["device"] == extrema["host"], "extrema JSON differs between backends")
+        say("e2e", extrema_json="device == host", keys=len(extrema["device"]))
+
+        # Panel parity, orbit by orbit: the same figures process_orbit renders
+        # (a second render of each panel), then where one orbit's time goes:
+        # dispatch, composite, PNG encode.
+        n_panels = 0
+        for orbit in sorted(mapping):
+            figs = orbit_figures(mapping[orbit], df, orbit, extrema["device"])
+            panels = figure_panels(figs)
+            results = {}
+            secs = {}
+            for backend in ("device", "host"):
+                os.environ["CST_RENDER_BACKEND"] = backend
+                if not have_pil and backend == "device":
+                    K.reset_launches()
+                t0 = time.perf_counter()
+                results[backend] = render_all(panels)
+                torch.cuda.synchronize()
+                secs[backend] = time.perf_counter() - t0
+            if not have_pil:
+                records["collapse"]["launches"] = K.LAUNCHES["collapse"]
+                records["fused_quantize"]["launches"] = K.LAUNCHES["fused_quantize"]
+                require(min(K.LAUNCHES.values()) > 0, f"a kernel of the render path never launched: {K.LAUNCHES}")
+            cells, off, on_boundary = compare_panels(panels, results["device"], results["host"])
+            n_panels += len(panels)
+            T, A, E = panels[0][2].cube.shape
+            say("e2e", orbit=orbit, shape=f"{T}x{A}x{E}", panels=len(panels), cells=cells,
+                cells_one_bin_apart=off, of_them_on_a_bin_boundary=on_boundary, bounds="bit-exact")
+            if have_pil:
+                os.environ["CST_RENDER_BACKEND"] = "device"
+                t0 = time.perf_counter()
+                images = render_figures(figs, dpi=FAST_SAVE_DPI)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for k, img in enumerate(images):
+                    save_image(img, os.path.join(tmp, f"breakdown_{orbit}_{k}.png"))
+                t2 = time.perf_counter()
+                say("breakdown", orbit=orbit, figures=len(figs), dispatch_s=f"{secs['device']:.3f}",
+                    composite_s=f"{t1 - t0 - secs['device']:.3f}", png_s=f"{t2 - t1:.3f}",
+                    host_dispatch_warm_s=f"{secs['host']:.3f}")
+        os.environ.pop("CST_RENDER_BACKEND", None)
+        for backend, secs_b in render_s.items():
+            say("e2e", backend=backend, orbits=len(mapping), panels=n_panels,
+                panels_per_s=f"{n_panels / secs_b:.2f}", note="process_orbit incl. decode, composite, PNG")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", action="store_true", help="build and check the kernels only")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from configurable_spectrograms_torch.ops import _build
+    from configurable_spectrograms_torch.utils.torch_setup import get_device
+
+    os.environ.setdefault("CST_TORCH_DEVICE", "cuda")
+    device = get_device()
+    smi = nvidia_smi_line()
+    libs = {}
+    for mod in ("PIL", "pandas", "matplotlib"):
+        try:
+            __import__(mod)
+            libs[mod] = "yes"
+        except ImportError:
+            libs[mod] = "no"
+    say("device", nvidia_smi=repr(smi), torch=torch.__version__, cuda=torch.version.cuda,
+        **{f"import_{k}": v for k, v in libs.items()})
+
+    t0 = time.perf_counter()
+    _build.load_library()
+    say("build", seconds=f"{time.perf_counter() - t0:.2f}", nvcc_seconds=f"{float(_build.BUILD_INFO['seconds']):.2f}",
+        library=os.path.relpath(str(_build.BUILD_INFO["path"])))
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
+        f.write(str(_build.BUILD_INFO["log"]))
+
+    records = check_kernels(device)
+    if not args.kernels:
+        run_e2e(records)
+    print(smi)
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+         "launches": r.get("launches"), "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
+        for name, r in records.items()
+    ]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,21 @@
+"""PyTorch/CUDA port of the configurable spectrogram engine.
+
+The JAX package ``configurable_spectrograms_tpu`` stays in the repository
+as the reference; this package mirrors its module layout and function
+names so each counterpart is easy to find.  It imports ``torch`` and never
+``jax``.  The FAST pitch-grid render path runs end to end: the extrema
+pre-pass (:mod:`.fast.extrema`) and the per-orbit render
+(:mod:`.fast.process_orbit`), whose pitch collapse and explicit-bounds
+quantize run in hand-written CUDA kernels (:mod:`.ops.kernels`, sources in
+``csrc/``) on an NVIDIA GPU and in their plain PyTorch versions on the CPU.
+
+Layer map:
+
+* ``utils``  -- device selection, logging, progress JSON, percentile helpers
+* ``data``   -- CDF reader/writer, orbit discovery, synthetic archives
+* ``ops``    -- kernels and the eager-torch panel analysis
+* ``render`` -- bucketed dispatch, host backend, figure composition
+* ``fast``   -- FAST mission layer (extrema pre-pass, per-orbit render)
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,207 @@
+"""The pitch-collapse and fused-quantize kernels, and their plain versions.
+
+Counterparts of ``configurable_spectrograms_tpu/ops/pallas_kernels.py``:
+
+* :func:`collapse_lanes` replaces ``collapse_cube_pallas``
+  (``_collapse_kernel``), batched over lanes so a whole render bucket or a
+  whole extrema batch is one launch.  It is the production collapse of
+  the port: the percentile (raw) render buckets and the extrema pre-pass
+  both run on it.
+* :func:`fused_quantize_lanes` replaces ``fused_quantize_pallas``
+  (``_fused_quantize_kernel``): collapse + explicit-bounds colormap index
+  in two launches (see ``csrc/fused_quantize.cu``).  It carries the
+  given-extrema render buckets.
+
+Each wrapper takes its plain PyTorch version for tensors on the CPU, and
+launches its CUDA kernel for tensors on a CUDA device -- or raises.
+Nothing falls back from the kernel to the plain version.  A launch adds one
+to :data:`LAUNCHES`, so a run can show that its main path went through the
+kernels.
+
+Lane layout shared by both: ``cubes`` (U, T, A, E) float32, ``u_idx`` (L,)
+int32 picks each lane's cube, ``masks`` (L, A) bool its pitch bins,
+``t_valid`` (L,) int32 its real rows (rows at or past it collapse to NaN).
+"""
+
+from __future__ import annotations
+
+import struct
+
+import torch
+
+#: Launch counts of the CUDA kernels (one per wrapper call that launched).
+LAUNCHES: dict[str, int] = {"collapse": 0, "fused_quantize": 0}
+
+_BIG = 3.0e38  # the "no finite positive value" sentinel of both JAX paths
+_BIG_BITS = struct.unpack("<i", struct.pack("<f", _BIG))[0]
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path, and the reference the kernels are held to)
+# ---------------------------------------------------------------------------
+
+
+def collapse_lanes_plain(cubes: torch.Tensor, u_idx: torch.Tensor, masks: torch.Tensor,
+                         t_valid: torch.Tensor) -> torch.Tensor:
+    """Masked nansum over pitch, one (T, E) matrix per lane.
+
+    An explicit loop over the pitch axis IN INDEX ORDER, not
+    ``torch.sum(dim=...)``: torch's CPU reduction does not add the slices
+    in order, and the host collapse and the extrema pool (numpy) do, bit
+    for bit.  Unselected and NaN entries add 0.0.
+    """
+    _, T, A, E = cubes.shape
+    L = u_idx.shape[0]
+    idx = u_idx.long()
+    acc = torch.zeros((L, T, E), dtype=torch.float32, device=cubes.device)
+    for a in range(A):
+        v = cubes[idx, :, a, :]
+        keep = masks[:, a].view(L, 1, 1) & ~torch.isnan(v)
+        acc += torch.where(keep, v, torch.zeros((), dtype=torch.float32, device=v.device))
+    rows = torch.arange(T, device=cubes.device).view(1, T, 1) < t_valid.view(L, 1, 1)
+    return torch.where(rows, acc, torch.full((), float("nan"), device=cubes.device))
+
+
+def fused_quantize_lanes_plain(cubes, u_idx, masks, e_valid, t_valid, t_start, t_count,
+                               z_bounds, z_scale: str = "log") -> dict[str, torch.Tensor]:
+    """Collapse + explicit-bounds quantize (the math of ``_fused_quantize_kernel``).
+
+    Preconditions as in the JAX kernel: ``z_bounds`` (L, 2) finite with
+    vmax > vmin.  Returns ``idx`` (L, T, E) uint8, ``vmin`` (L,) float32
+    (the safe-floored bound actually used) and ``col_all_nan`` (L, E) bool.
+    """
+    c = collapse_lanes_plain(cubes, u_idx, masks, t_valid)
+    L, T, E = c.shape
+    dev = c.device
+    rows = torch.arange(T, device=dev).view(1, T)
+    in_file = rows < t_valid.view(L, 1)
+    col_any = (~torch.isnan(c) & in_file.unsqueeze(-1)).any(dim=1)
+    in_window = in_file & (rows >= t_start.view(L, 1)) & (rows < (t_start + t_count).view(L, 1))
+    fp = torch.isfinite(c) & (c > 0) & in_window.unsqueeze(-1) & e_valid.view(L, 1, E)
+    big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+    minpos = torch.where(fp, c, big).amin(dim=(1, 2))
+    safe_vmin = torch.where(minpos < big, minpos, torch.tensor(1e-10, dtype=torch.float32, device=dev))
+    vmin = z_bounds[:, 0].float()
+    vmax = z_bounds[:, 1].float()
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    if z_scale == "log":
+        vmin = torch.maximum(torch.maximum(vmin, safe_vmin), torch.tensor(1e-10, dtype=torch.float32, device=dev))
+        v3 = vmin.view(L, 1, 1)
+        work = torch.where(~torch.isfinite(c) | (c <= 0), v3, c)
+        log_vmin = torch.log10(vmin)
+        log_span = torch.log10(vmax) - log_vmin
+        denom = torch.where(log_span == 0, one, log_span).view(L, 1, 1)
+        ramp = (torch.log10(torch.clamp_min(work, 1e-37)) - log_vmin.view(L, 1, 1)) / denom
+    else:
+        v3, w3 = vmin.view(L, 1, 1), vmax.view(L, 1, 1)
+        work = torch.where(torch.isnan(c), v3, c)
+        work = torch.where(work == float("-inf"), v3, work)
+        work = torch.where(work == float("inf"), w3, work)
+        span = vmax - vmin
+        ramp = (work - v3) / torch.where(span == 0, one, span).view(L, 1, 1)
+    norm = torch.where((vmin == vmax).view(L, 1, 1), zero, ramp)
+    norm = torch.where(torch.isnan(norm), zero, norm)
+    idx = torch.clamp(torch.floor(norm * 256.0), 0.0, 255.0).to(torch.uint8)
+    return {"idx": idx, "vmin": vmin, "col_all_nan": ~col_any}
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_lanes(cubes, u_idx, masks, t_valid) -> tuple[int, int, int, int, int]:
+    if cubes.dim() != 4 or cubes.dtype != torch.float32:
+        raise ValueError(f"cubes must be (U, T, A, E) float32, got {tuple(cubes.shape)} {cubes.dtype}")
+    U, T, A, E = cubes.shape
+    L = u_idx.shape[0]
+    if u_idx.dtype != torch.int32 or u_idx.dim() != 1:
+        raise ValueError("u_idx must be (L,) int32")
+    if masks.dtype != torch.bool or tuple(masks.shape) != (L, A):
+        raise ValueError(f"masks must be ({L}, {A}) bool, got {tuple(masks.shape)} {masks.dtype}")
+    if t_valid.dtype != torch.int32 or tuple(t_valid.shape) != (L,):
+        raise ValueError("t_valid must be (L,) int32")
+    return U, T, A, E, L
+
+
+def _cuda_args(*tensors: torch.Tensor) -> list[int]:
+    """Device pointers, after checking every tensor is contiguous on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"all kernel inputs must be on {dev}, got one on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    return [t.data_ptr() for t in tensors]
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def collapse_lanes(cubes: torch.Tensor, u_idx: torch.Tensor, masks: torch.Tensor,
+                   t_valid: torch.Tensor) -> torch.Tensor:
+    """(U, T, A, E) cubes -> (L, T, E) masked nansum per lane (see module doc)."""
+    U, T, A, E, L = _check_lanes(cubes, u_idx, masks, t_valid)
+    if cubes.device.type == "cpu":
+        return collapse_lanes_plain(cubes, u_idx, masks, t_valid)
+    if cubes.device.type != "cuda":
+        raise ValueError(f"collapse_lanes runs on cpu or cuda tensors, got {cubes.device}")
+    from configurable_spectrograms_torch.ops._build import load_library
+
+    lib = load_library()
+    out = torch.empty((L, T, E), dtype=torch.float32, device=cubes.device)
+    if L == 0:
+        return out
+    ptrs = _cuda_args(cubes, u_idx, masks, t_valid, out)
+    stream = torch.cuda.current_stream(cubes.device).cuda_stream
+    _raise_on(lib.cst_collapse(*ptrs, L, T, A, E, stream), "cst_collapse")
+    LAUNCHES["collapse"] += 1
+    return out
+
+
+def fused_quantize_lanes(cubes, u_idx, masks, e_valid, t_valid, t_start, t_count, z_bounds,
+                         z_scale: str = "log") -> dict[str, torch.Tensor]:
+    """Collapse + explicit-bounds quantize per lane (see :func:`fused_quantize_lanes_plain`)."""
+    U, T, A, E, L = _check_lanes(cubes, u_idx, masks, t_valid)
+    if z_scale not in ("log", "linear"):
+        raise ValueError(f"z_scale must be 'log' or 'linear', got {z_scale!r}")
+    if e_valid.dtype != torch.bool or tuple(e_valid.shape) != (L, E):
+        raise ValueError(f"e_valid must be ({L}, {E}) bool")
+    for name, t in (("t_start", t_start), ("t_count", t_count)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (L,):
+            raise ValueError(f"{name} must be (L,) int32")
+    if z_bounds.dtype != torch.float32 or tuple(z_bounds.shape) != (L, 2):
+        raise ValueError("z_bounds must be (L, 2) float32")
+    if cubes.device.type == "cpu":
+        return fused_quantize_lanes_plain(cubes, u_idx, masks, e_valid, t_valid, t_start,
+                                          t_count, z_bounds, z_scale)
+    if cubes.device.type != "cuda":
+        raise ValueError(f"fused_quantize_lanes runs on cpu or cuda tensors, got {cubes.device}")
+    from configurable_spectrograms_torch.ops._build import load_library
+
+    lib = load_library()
+    dev = cubes.device
+    collapsed = torch.empty((L, T, E), dtype=torch.float32, device=dev)
+    col_any = torch.zeros((L, E), dtype=torch.int32, device=dev)
+    col_min = torch.full((L, E), _BIG_BITS, dtype=torch.int32, device=dev)
+    idx = torch.empty((L, T, E), dtype=torch.uint8, device=dev)
+    vmin = torch.empty((L,), dtype=torch.float32, device=dev)
+    col_all_nan = torch.empty((L, E), dtype=torch.bool, device=dev)
+    if L == 0:
+        return {"idx": idx, "vmin": vmin, "col_all_nan": col_all_nan}
+    ptrs = _cuda_args(cubes, u_idx, masks, e_valid, t_valid, t_start, t_count, z_bounds)
+    outs = _cuda_args(collapsed, col_any, col_min, idx, vmin, col_all_nan)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.cst_fused_quantize(*ptrs, 1 if z_scale == "log" else 0, *outs, L, T, A, E, stream)
+    _raise_on(err, "cst_fused_quantize")
+    LAUNCHES["fused_quantize"] += 1
+    return {"idx": idx, "vmin": vmin, "col_all_nan": col_all_nan}
+
