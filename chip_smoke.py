@@ -8,11 +8,16 @@ Phases, one line each, in order:
 
 1. device   -- the card's name and power limit (nvidia-smi), which of PIL,
                pandas and matplotlib import; requires torch.cuda.is_available().
-2. build    -- compiles ``configurable_spectrograms_torch/csrc/*.cu`` with nvcc.
-3. kernel   -- each kernel against its plain PyTorch version on the card at
-               8192x64x128 and 2048x32x48 (seeded inputs with NaN and +/-inf
-               cells, t_valid < T, partial pitch masks, a time window, both z
-               scales), with CUDA-event timings (median of 20 after warm-up).
+2. build    -- compiles ``configurable_spectrograms_torch/csrc/*.cu`` with nvcc,
+               one process per source, all started together.
+3. kernel   -- each kernel against its plain PyTorch version on the card:
+               collapse and fused_quantize at 8192x64x128 and 2048x32x48
+               (seeded inputs with NaN and +/-inf cells, t_valid < T, partial
+               pitch masks, a time window, both z scales); stft_power on 600 s
+               of seeded 44.1 kHz audio at L = 1024, hop = 256 (F = 103,356,
+               K = 513) and L = 8192, hop = 2048 (F = 12,916, K = 4097), within
+               |a - b| <= 1e-4 * max(|a|, 1e-3 * max|a|) + 1e-2 of the plain
+               version.  CUDA-event timings (median of 20 after warm-up).
 4. e2e      -- a synthetic archive (3 orbits at 2048x32x48, 1 orbit at
                8192x64x128, 4 instruments): the extrema pre-pass and the
                log/log per-orbit render on the device, then again with
@@ -20,6 +25,18 @@ Phases, one line each, in order:
                for bit and its index cells exactly, or one bin apart on a
                provable bin boundary; both kernels must have launched during
                the device run.
+5. generic  -- the single-CDF CLI on the 8192x64x128 file and
+               generic_batch_plot over the archive's 16 files, on the device
+               backend: exit 0 and one PNG per item.
+6. audio    -- the same 600 s of audio as a 16-bit WAV (a 50 Hz - 15 kHz
+               chirp, two tones, noise at -30 dB) through
+               ``python -m configurable_spectrograms_torch.cli.audio``'s main on
+               the device backend: --stft-method pallas raw and --n-mels 128,
+               then fft and matmul raw.  Each device spectrogram within the
+               stft_power tolerance of the numpy host STFT; the host-computed
+               dataset (raw and mel) rendered on both backends with bounds bit
+               for bit; stft_power and collapse launched in that phase;
+               stft / dispatch / composite / PNG seconds.
 
 Any failure raises (non-zero exit).  The last three lines are the card's
 nvidia-smi line, a JSON line with one record per kernel, and the result
@@ -41,15 +58,20 @@ import time
 import numpy as np
 
 SHAPES = ((8192, 64, 128), (2048, 32, 48))
+AUDIO_SECONDS, AUDIO_RATE = 600, 44100
+STFT_SHAPES = ((1024, 256), (8192, 2048))  # (frame_length, hop): the CLI default, and past JAX's 4096 gate
 REPLACES = {
     "collapse": "configurable_spectrograms_tpu/ops/pallas_kernels.py:32",
     "fused_quantize": "configurable_spectrograms_tpu/ops/pallas_kernels.py:44",
+    "stft_power": "configurable_spectrograms_tpu/ops/pallas_kernels.py:244",
 }
 SOURCES = {
     "collapse": "configurable_spectrograms_torch/csrc/collapse.cu",
     "fused_quantize": "configurable_spectrograms_torch/csrc/fused_quantize.cu",
+    "stft_power": "configurable_spectrograms_torch/csrc/stft_power.cu",
 }
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA's data sheet (SXM, 700 W)
+H100_FP32_FLOPS = 67e12  # non-tensor fp32, NVIDIA's data sheet (SXM, 700 W)
 
 
 def require(ok: bool, message: str) -> None:
@@ -208,14 +230,14 @@ def orbit_figures(paths: dict, df, orbit: int, extrema: dict | None) -> list:
     return figs
 
 
-def figure_panels(figs: list) -> list:
-    """The (tile_h, tile_w, panel) of every panel of *figs* at the save DPI."""
+def figure_panels(figs: list, dpi: float | None = None) -> list:
+    """The (tile_h, tile_w, panel) of every panel of *figs* at *dpi* (default: the FAST save DPI)."""
     from configurable_spectrograms_torch.constants import FAST_SAVE_DPI
     from configurable_spectrograms_torch.render.compositor import _Layout
 
     out = []
     for fig in figs:
-        lay = _Layout(fig, float(FAST_SAVE_DPI))
+        lay = _Layout(fig, float(dpi or FAST_SAVE_DPI))
         out += [(lay.tile_h, lay.tile_w, ax.panel) for ax in fig.axes if ax.panel is not None]
     return out
 
@@ -377,10 +399,9 @@ def run_e2e(records: dict, small=SHAPES[1], big=SHAPES[0]) -> None:
                 say("e2e", backend="device", launches=json.dumps(launches),
                     extrema_launches=json.dumps(launches_extrema))
                 require(launches_extrema["collapse"] > 0, "the extrema pre-pass launched no collapse kernel")
-                require(not have_pil or min(launches.values()) > 0,
+                require(not have_pil or min(launches["collapse"], launches["fused_quantize"]) > 0,
                         f"a kernel of the render path never launched: {launches}")
-                records["collapse"]["launches"] = launches["collapse"]
-                records["fused_quantize"]["launches"] = launches["fused_quantize"]
+                add_launches(records, launches)
         require(extrema["device"] == extrema["host"], "extrema JSON differs between backends")
         say("e2e", extrema_json="device == host", keys=len(extrema["device"]))
 
@@ -402,9 +423,9 @@ def run_e2e(records: dict, small=SHAPES[1], big=SHAPES[0]) -> None:
                 torch.cuda.synchronize()
                 secs[backend] = time.perf_counter() - t0
             if not have_pil:
-                records["collapse"]["launches"] = K.LAUNCHES["collapse"]
-                records["fused_quantize"]["launches"] = K.LAUNCHES["fused_quantize"]
-                require(min(K.LAUNCHES.values()) > 0, f"a kernel of the render path never launched: {K.LAUNCHES}")
+                add_launches(records, {k: K.LAUNCHES[k] for k in ("collapse", "fused_quantize")})
+                require(min(K.LAUNCHES["collapse"], K.LAUNCHES["fused_quantize"]) > 0,
+                        f"a kernel of the render path never launched: {K.LAUNCHES}")
             cells, off, on_boundary = compare_panels(panels, results["device"], results["host"])
             n_panels += len(panels)
             T, A, E = panels[0][2].cube.shape
@@ -422,10 +443,239 @@ def run_e2e(records: dict, small=SHAPES[1], big=SHAPES[0]) -> None:
                 say("breakdown", orbit=orbit, figures=len(figs), dispatch_s=f"{secs['device']:.3f}",
                     composite_s=f"{t1 - t0 - secs['device']:.3f}", png_s=f"{t2 - t1:.3f}",
                     host_dispatch_warm_s=f"{secs['host']:.3f}")
-        os.environ.pop("CST_RENDER_BACKEND", None)
         for backend, secs_b in render_s.items():
             say("e2e", backend=backend, orbits=len(mapping), panels=n_panels,
                 panels_per_s=f"{n_panels / secs_b:.2f}", note="process_orbit incl. decode, composite, PNG")
+        if have_pil:
+            run_generic(records, mapping, tmp)
+        os.environ.pop("CST_RENDER_BACKEND", None)
+
+
+def add_launches(records: dict, counts: dict) -> None:
+    """Add one phase's launch counts to the kernels' records."""
+    for name, n in counts.items():
+        if name in records:
+            records[name]["launches"] = records[name].get("launches", 0) + n
+
+
+def stft_tolerance(ref, got) -> tuple[float, float]:
+    """(max |got - ref|, max of |got - ref| / (1e-4 * max(|ref|, 1e-3 * max|ref|) + 1e-2)).
+
+    The bound of tests/test_stft.py:243-244; a ratio <= 1 passes.
+    """
+    import torch
+
+    ref = torch.as_tensor(ref, dtype=torch.float32)
+    got = torch.as_tensor(got, dtype=torch.float32).to(ref.device)
+    diff = (got - ref).abs()
+    scale = torch.maximum(ref.abs(), 1e-3 * ref.abs().max())
+    return float(diff.max()), float((diff / (1e-4 * scale + 1e-2)).max())
+
+
+def make_audio(seconds: float, rate: int, seed: int = 0) -> np.ndarray:
+    """Seeded 16-bit mono audio: a 50 Hz - 15 kHz exponential chirp, 440 Hz and 6 kHz tones, noise at -30 dB."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * rate)
+    t = np.arange(n, dtype=np.float64) / rate
+    k = np.log(15000.0 / 50.0)
+    x = 0.3 * np.sin(2.0 * np.pi * 50.0 * seconds / k * np.expm1(k * t / seconds))
+    x += 0.2 * np.sin(2.0 * np.pi * 440.0 * t) + 0.2 * np.sin(2.0 * np.pi * 6000.0 * t)
+    x += 0.3 * 10.0 ** (-30.0 / 20.0) * rng.standard_normal(n)
+    return np.round(x * 32767.0).astype(np.int16)
+
+
+def check_stft_kernel(device, signal: np.ndarray) -> dict:
+    """stft_power against its plain version on the audio the main path reads, at both STFT_SHAPES."""
+    import torch
+
+    from configurable_spectrograms_torch.ops import kernels as K
+    from configurable_spectrograms_torch.ops.stft import _dft_bases, frame_signal
+
+    record = {}
+    x = torch.from_numpy(signal).to(device)
+    for L, hop in STFT_SHAPES:
+        frames = frame_signal(x, L, hop)
+        cos_b, sin_b = (torch.from_numpy(b).to(device) for b in _dft_bases(L))
+        F, K_bins = frames.shape[0], cos_b.shape[1]
+        got = K.stft_power(frames, cos_b, sin_b)
+        want = K.stft_power_plain(frames, cos_b, sin_b)
+        torch.cuda.synchronize()
+        err, ratio = stft_tolerance(want, got)
+        del got, want
+        ms = cuda_time_ms(lambda: K.stft_power(frames, cos_b, sin_b))
+        plain_ms = cuda_time_ms(lambda: K.stft_power_plain(frames, cos_b, sin_b), reps=10)
+        flop = 4.0 * F * K_bins * L  # two products, one FMA = 2 FLOP
+        say("kernel", name="stft_power", F=F, L=L, hop=hop, K=K_bins, max_abs_err=err, tol_ratio=f"{ratio:.3e}",
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", gflop=f"{flop / 1e9:.1f}",
+            GFLOPs=f"{flop / ms / 1e6:.1f}", fp32_share=f"{flop / (ms * 1e-3) / H100_FP32_FLOPS:.3f}",
+            plain_GFLOPs=f"{flop / plain_ms / 1e6:.1f}")
+        require(ratio <= 1.0, f"stft_power outside its tolerance at F={F} L={L}: ratio {ratio}")
+        if not record:
+            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"stft_power": record}
+
+
+def call_main(main, argv: list[str]) -> int:
+    """A CLI's ``main()`` with *argv*, as the shell would call it (argparse exits become codes)."""
+    saved = sys.argv
+    sys.argv = ["prog", *argv]
+    try:
+        rc = main()
+    except SystemExit as exc:
+        rc = exc.code
+    finally:
+        sys.argv = saved
+    return 0 if rc is None else rc
+
+
+def run_generic(records: dict, mapping: dict, tmp: str) -> None:
+    """The single-CDF CLI and generic_batch_plot over the archive, on the device backend."""
+    import torch
+
+    from configurable_spectrograms_torch.cli import single_plot_spectrogram as cli_single
+    from configurable_spectrograms_torch.data.cdf_utils import load_fast_cdf_dataset
+    from configurable_spectrograms_torch.generic_batch import generic_batch_plot
+    from configurable_spectrograms_torch.ops import kernels as K
+
+    os.environ["CST_RENDER_BACKEND"] = "device"
+    K.reset_launches()
+    big = max(mapping)
+    out = os.path.join(tmp, "single_generic.png")
+    t0 = time.perf_counter()
+    rc = call_main(cli_single.main, ["--cdf-file", mapping[big]["ees"], "--output", out,
+                                     "--y-scale", "log", "--z-scale", "log", "--colormap", "inferno"])
+    torch.cuda.synchronize()
+    require(rc == 0 and os.path.exists(out), f"single-CDF CLI exited {rc}")
+    t_single = time.perf_counter() - t0
+
+    items = [f"{orbit}_{inst}" for orbit in sorted(mapping) for inst in sorted(mapping[orbit])]
+
+    def build(item):
+        orbit, inst = item.split("_")
+        d = load_fast_cdf_dataset(mapping[int(orbit)][inst])
+        return [{"x": d["times"], "y": d["energy"], "data": d["data"], "label": item}]
+
+    out_dir = os.path.join(tmp, "generic_batch")
+    t0 = time.perf_counter()
+    res = generic_batch_plot(items, out_dir, build, y_scale="log", z_scale="log", colormap="inferno",
+                             progress_json_path=os.path.join(tmp, "generic_progress.json"),
+                             install_signal_handlers=False)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    n_png = len(glob.glob(os.path.join(out_dir, "*", "generic.png")))
+    launches = dict(K.LAUNCHES)
+    say("generic", single_cli_rc=rc, single_cli_s=f"{t_single:.2f}", batch_items=len(items),
+        batch_ok=sum(st == "ok" for _, st in res), pngs=n_png, batch_s=f"{t_batch:.2f}",
+        launches=json.dumps(launches))
+    require(dict(res) == {i: "ok" for i in items} and n_png == len(items), f"generic batch: {res}")
+    require(launches["collapse"] > 0, "the generic CLIs launched no collapse kernel")
+    add_launches(records, launches)
+
+
+def write_wav(path: str, samples: np.ndarray, rate: int) -> None:
+    import wave
+
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(samples.astype("<i2").tobytes())
+
+
+def run_audio(records: dict, samples: np.ndarray) -> None:
+    """The audio CLI on the device backend, held against the numpy STFT and the host render."""
+    import torch
+
+    import PIL  # noqa: F401 - the CLI writes PNGs
+    from configurable_spectrograms_torch.cli import audio as cli_audio
+    from configurable_spectrograms_torch.ops import kernels as K
+    from configurable_spectrograms_torch.ops.stft import audio_spectrogram_dataset
+    from configurable_spectrograms_torch.render.figure import render_figures, save_image
+    from configurable_spectrograms_torch.render.plotting import generic_plot_spectrogram_set
+
+    def figure_of(ds):
+        fig, _ = generic_plot_spectrogram_set([ds], x_is_unix=False, z_scale="log", colormap="magma",
+                                              y_min=float(ds["y"][0]), y_max=float(ds["y"][-1]))
+        return fig
+
+    with tempfile.TemporaryDirectory(prefix="cst_chip_audio_") as tmp:
+        wav = os.path.join(tmp, "audio.wav")
+        t0 = time.perf_counter()
+        write_wav(wav, samples, AUDIO_RATE)
+        signal, rate = cli_audio.load_wav(wav)
+        t1 = time.perf_counter()
+        os.environ["CST_RENDER_BACKEND"] = "host"
+        host = {n: audio_spectrogram_dataset(signal, rate, n_mels=n, label="host") for n in (None, 128)}
+        say("audio", seconds=AUDIO_SECONDS, rate=rate, samples=signal.size, wav_s=f"{t1 - t0:.2f}",
+            host_stft_s=f"{time.perf_counter() - t1:.2f}", frames=host[None]["data"].shape[0])
+
+        captured = []
+        real = cli_audio.audio_spectrogram_dataset
+
+        def capturing(*a, **k):
+            t = time.perf_counter()
+            ds = real(*a, **k)
+            captured.append((ds, time.perf_counter() - t))
+            return ds
+
+        os.environ["CST_RENDER_BACKEND"] = "device"
+        cli_audio.audio_spectrogram_dataset = capturing
+        K.reset_launches()
+        try:
+            for method, n_mels in (("pallas", None), ("pallas", 128), ("fft", None), ("matmul", None)):
+                out = os.path.join(tmp, f"{method}_{n_mels}.png")
+                argv = ["--wav-file", wav, "--output", out, "--stft-method", method]
+                t0 = time.perf_counter()
+                rc = call_main(cli_audio.main, argv + (["--n-mels", str(n_mels)] if n_mels else []))
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                require(rc == 0 and os.path.exists(out), f"audio CLI {method} n_mels={n_mels} exited {rc}")
+                ds, stft_s = captured[-1]
+                ref = host[n_mels]["data"][:, 0, :]
+                got = ds["data"][:, 0, :]
+                require(got.shape == ref.shape, f"{method}: shape {got.shape} vs host {ref.shape}")
+                err, ratio = stft_tolerance(ref, got)
+                say("audio", cli=method, n_mels=n_mels, rc=rc, cli_s=f"{secs:.2f}", stft_s=f"{stft_s:.3f}",
+                    shape="x".join(map(str, ds["data"].shape)), vs_host_max_abs_err=err, tol_ratio=f"{ratio:.3e}")
+                require(ratio <= 1.0, f"audio {method} n_mels={n_mels}: device vs host STFT ratio {ratio}")
+        finally:
+            cli_audio.audio_spectrogram_dataset = real
+        launches = dict(K.LAUNCHES)
+        say("audio", launches=json.dumps(launches))
+        require(launches["stft_power"] > 0 and launches["collapse"] > 0,
+                f"the audio path did not launch stft_power and collapse: {launches}")
+        add_launches(records, launches)
+
+        # Where one audio figure's time goes (the pallas raw dataset, 150 DPI as the CLI saves).
+        fig = figure_of(captured[0][0])
+        t0 = time.perf_counter()
+        render_all(figure_panels([fig], dpi=150))
+        torch.cuda.synchronize()
+        dispatch_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        image = render_figures([fig], dpi=150)[0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        save_image(image, os.path.join(tmp, "breakdown.png"))
+        say("breakdown", figure="audio_raw", stft_s=f"{captured[0][1]:.3f}", dispatch_s=f"{dispatch_s:.3f}",
+            composite_s=f"{t1 - t0 - dispatch_s:.3f}", png_s=f"{time.perf_counter() - t1:.3f}")
+
+        # The host-computed datasets on both render backends.
+        for n_mels, ds in host.items():
+            panels = figure_panels([figure_of(ds)], dpi=150)
+            results, secs = {}, {}
+            for backend in ("device", "host"):
+                os.environ["CST_RENDER_BACKEND"] = backend
+                t0 = time.perf_counter()
+                results[backend] = render_all(panels)
+                torch.cuda.synchronize()
+                secs[backend] = time.perf_counter() - t0
+            cells, off, on_boundary = compare_panels(panels, results["device"], results["host"])
+            T, A, E = panels[0][2].cube.shape
+            say("audio", render="device vs host", n_mels=n_mels, shape=f"{T}x{A}x{E}", cells=cells,
+                cells_one_bin_apart=off, of_them_on_a_bin_boundary=on_boundary, bounds="bit-exact",
+                device_dispatch_s=f"{secs['device']:.3f}", host_dispatch_s=f"{secs['host']:.3f}")
+        os.environ.pop("CST_RENDER_BACKEND", None)
 
 
 def main() -> int:
@@ -465,8 +715,11 @@ def main() -> int:
         f.write(str(_build.BUILD_INFO["log"]))
 
     records = check_kernels(device)
+    samples = make_audio(AUDIO_SECONDS, AUDIO_RATE)
+    records.update(check_stft_kernel(device, samples.astype(np.float32) / 32768.0))
     if not args.kernels:
         run_e2e(records)
+        run_audio(records, samples)
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -8,12 +8,16 @@ pre-pass (:mod:`.fast.extrema`) and the per-orbit render
 (:mod:`.fast.process_orbit`), whose pitch collapse and explicit-bounds
 quantize run in hand-written CUDA kernels (:mod:`.ops.kernels`, sources in
 ``csrc/``) on an NVIDIA GPU and in their plain PyTorch versions on the CPU.
+So do the audio front end (:mod:`.ops.stft`, whose ``pallas`` method runs
+the STFT-power kernel) and the generic single-CDF and batch renders.
 
 Layer map:
 
+* ``cli``    -- ``python -m configurable_spectrograms_torch.cli.{audio,single_plot_spectrogram}``
+* ``batch_runner`` / ``generic_batch`` -- resumable batch execution
 * ``utils``  -- device selection, logging, progress JSON, percentile helpers
 * ``data``   -- CDF reader/writer, orbit discovery, synthetic archives
-* ``ops``    -- kernels and the eager-torch panel analysis
+* ``ops``    -- kernels, the audio STFT and the eager-torch panel analysis
 * ``render`` -- bucketed dispatch, host backend, figure composition
 * ``fast``   -- FAST mission layer (extrema pre-pass, per-orbit render)
 """

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``csrc/`` (nvcc + ctypes).
 
-Every ``csrc/*.cu`` file is compiled by ONE ``nvcc`` call into a shared
-library with a plain C interface for Hopper (``sm_90a``), which
-:mod:`.kernels` loads with :mod:`ctypes`.  The library lands in
+Every ``csrc/*.cu`` file is compiled to an object by its own ``nvcc``
+process, all started together, and one more ``nvcc`` links the objects
+into a shared library with a plain C interface for Hopper (``sm_90a``),
+which :mod:`.kernels` loads with :mod:`ctypes`.  The library lands in
 ``build/cst_torch/`` at the checkout root, named by a hash of the sources
 and flags, so an edited kernel never loads a stale build.  Nothing here
 runs at import time: the first kernel launch builds.
@@ -20,16 +21,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cst_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: What the last build did: ``seconds`` compiling (0.0 when the cached
 #: library was loaded) and the compiler's ``log`` (ptxas register counts).
@@ -40,6 +39,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "cst_collapse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cst_fused_quantize": [_P] * 8 + [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    "cst_stft_power": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
 }
 
 
@@ -66,6 +66,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcst_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[int, str]]:
+    """Run the commands concurrently; (exit code, output) of each, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=str(CSRC))
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
 def build() -> Path:
     """Compile the library unless a build for these sources exists."""
     lib = library_path()
@@ -73,15 +81,22 @@ def build() -> Path:
         BUILD_INFO.update(seconds=0.0, path=str(lib))
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.tmp-{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(CSRC))
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    BUILD_INFO.update(seconds=seconds, log=proc.stdout + proc.stderr, path=str(lib))
+    with tempfile.TemporaryDirectory(prefix=f"{lib.stem}-", dir=BUILD_DIR) as work:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [os.path.join(work, f"{src.stem}.o") for src in srcs]
+        results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for src, obj in zip(srcs, objs)])
+        log = "".join(f"== {src.name}\n{out}" for src, (_, out) in zip(srcs, results))
+        failed = [src.name for src, (rc, _) in zip(srcs, results) if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = os.path.join(work, lib.name)
+        [(rc, out)] = _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+        if rc != 0:
+            raise RuntimeError(f"nvcc link failed ({rc}):\n{out}")
+        os.replace(tmp, lib)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log, path=str(lib))
     return lib
 
 

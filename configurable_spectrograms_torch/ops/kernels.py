@@ -1,4 +1,4 @@
-"""The pitch-collapse and fused-quantize kernels, and their plain versions.
+"""The pitch-collapse, fused-quantize and STFT-power kernels, and their plain versions.
 
 Counterparts of ``configurable_spectrograms_tpu/ops/pallas_kernels.py``:
 
@@ -11,6 +11,9 @@ Counterparts of ``configurable_spectrograms_tpu/ops/pallas_kernels.py``:
   (``_fused_quantize_kernel``): collapse + explicit-bounds colormap index
   in two launches (see ``csrc/fused_quantize.cu``).  It carries the
   given-extrema render buckets.
+* :func:`stft_power` replaces ``stft_power_pallas`` (``_stft_power_kernel``):
+  the windowed-DFT power spectrogram of ``ops/stft.py``'s ``"pallas"``
+  method, read straight from the framed signal (see ``csrc/stft_power.cu``).
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 launches its CUDA kernel for tensors on a CUDA device -- or raises.
@@ -30,7 +33,7 @@ import struct
 import torch
 
 #: Launch counts of the CUDA kernels (one per wrapper call that launched).
-LAUNCHES: dict[str, int] = {"collapse": 0, "fused_quantize": 0}
+LAUNCHES: dict[str, int] = {"collapse": 0, "fused_quantize": 0, "stft_power": 0}
 
 _BIG = 3.0e38  # the "no finite positive value" sentinel of both JAX paths
 _BIG_BITS = struct.unpack("<i", struct.pack("<f", _BIG))[0]
@@ -109,6 +112,17 @@ def fused_quantize_lanes_plain(cubes, u_idx, masks, e_valid, t_valid, t_start, t
     norm = torch.where(torch.isnan(norm), zero, norm)
     idx = torch.clamp(torch.floor(norm * 256.0), 0.0, 255.0).to(torch.uint8)
     return {"idx": idx, "vmin": vmin, "col_all_nan": ~col_any}
+
+
+def stft_power_plain(frames: torch.Tensor, cos_b: torch.Tensor, sin_b: torch.Tensor) -> torch.Tensor:
+    """``(frames @ cos_b)^2 + (frames @ sin_b)^2`` in float32 (the math of ``_stft_power_kernel``).
+
+    Full float32 products: :func:`..utils.torch_setup.get_device` turns
+    TF32 off for CUDA matmuls.
+    """
+    re = frames @ cos_b
+    im = frames @ sin_b
+    return re * re + im * im
 
 
 # ---------------------------------------------------------------------------
@@ -205,3 +219,37 @@ def fused_quantize_lanes(cubes, u_idx, masks, e_valid, t_valid, t_start, t_count
     LAUNCHES["fused_quantize"] += 1
     return {"idx": idx, "vmin": vmin, "col_all_nan": col_all_nan}
 
+
+
+def stft_power(frames: torch.Tensor, cos_b: torch.Tensor, sin_b: torch.Tensor) -> torch.Tensor:
+    """(F, L) frames x window-folded bases (L, K) -> (F, K) float32 power.
+
+    ``frames`` may be any (F, L) float32 view with unit inner stride --
+    ``signal.unfold(0, L, hop)`` is read in place, row stride ``hop``, with
+    no (F, L) copy.  ``cos_b`` / ``sin_b`` are contiguous (L, K) float32.
+    """
+    if frames.dim() != 2 or frames.dtype != torch.float32:
+        raise ValueError(f"frames must be (F, L) float32, got {tuple(frames.shape)} {frames.dtype}")
+    F, L = frames.shape
+    if frames.stride(1) != 1:
+        raise ValueError(f"frames must have unit inner stride, got strides {frames.stride()}")
+    for name, b in (("cos_b", cos_b), ("sin_b", sin_b)):
+        if b.dtype != torch.float32 or b.dim() != 2 or b.shape[0] != L or b.shape != cos_b.shape:
+            raise ValueError(f"{name} must be ({L}, K) float32 like cos_b, got {tuple(b.shape)} {b.dtype}")
+    K = cos_b.shape[1]
+    if frames.device.type == "cpu":
+        return stft_power_plain(frames, cos_b, sin_b)
+    if frames.device.type != "cuda":
+        raise ValueError(f"stft_power runs on cpu or cuda tensors, got {frames.device}")
+    from configurable_spectrograms_torch.ops._build import load_library
+
+    lib = load_library()
+    out = torch.empty((F, K), dtype=torch.float32, device=frames.device)
+    if F == 0:
+        return out
+    out_p, cos_p, sin_p = _cuda_args(out, cos_b, sin_b)  # one device: the frames'
+    stream = torch.cuda.current_stream(frames.device).cuda_stream
+    err = lib.cst_stft_power(frames.data_ptr(), frames.stride(0), F, L, cos_p, sin_p, K, out_p, stream)
+    _raise_on(err, "cst_stft_power")
+    LAUNCHES["stft_power"] += 1
+    return out

@@ -12,6 +12,8 @@ from __future__ import annotations
 import sys
 import threading
 import traceback
+from datetime import datetime
+from pathlib import Path
 
 
 class _Buffer:
@@ -60,6 +62,20 @@ def _echo(message: str) -> None:
         print(message, file=sys.stderr)
 
 
+def get_logfile_path(prefix: str, datetime_marker_path: str) -> str:
+    """Per-run log path derived from a persistent timestamp marker file.
+
+    The marker is minted on first use and reused afterwards, so reruns of
+    one pipeline append to a single log (reference logging_utils.py:21-45).
+    """
+    marker = Path(datetime_marker_path)
+    stamp = marker.read_text().strip() if marker.exists() else ""
+    if not stamp:
+        stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+        marker.write_text(stamp)
+    return f"{prefix}_{stamp}.log"
+
+
 def set_logfile_path(path: str | None) -> None:
     """Point buffered flushes at *path* (``None`` discards on flush).
 
@@ -71,6 +87,12 @@ def set_logfile_path(path: str | None) -> None:
 
     with _BUF.lock:
         _BUF.path = os.path.abspath(path) if path is not None else None
+
+
+def configure_log_batch(batch_size: int) -> None:
+    """Set how many records accumulate before an automatic flush (min 1)."""
+    with _BUF.lock:
+        _BUF.batch_size = max(1, int(batch_size))
 
 
 def log_message(message: str, force_flush: bool = False) -> None:

@@ -4,8 +4,8 @@ One small synthetic orbit (A = 16) goes through the extrema pre-pass and
 ``FAST_process_single_orbit`` of both packages; the PNG files must be
 byte-identical on the host backend and agree within one colormap bin on
 the device backend.  The golden pitch grid must come out of the port pixel
-for pixel.  And the port must import and run the slice with ``jax``
-blocked.
+for pixel.  And the port must import and run the slice, the audio CLI and
+the generic batch with ``jax`` blocked.
 """
 
 import os
@@ -112,7 +112,7 @@ def test_slice_writes_the_same_pngs_as_the_jax_package(orbit_archive, backend, m
             assert out["torch"][path] == out["jax"][path], path
         else:
             _assert_same_or_one_bin_apart(out["torch"][path], out["jax"][path], path)
-    assert kernels.LAUNCHES == {"collapse": 0, "fused_quantize": 0}  # CPU tensors launch nothing
+    assert kernels.LAUNCHES == {"collapse": 0, "fused_quantize": 0, "stft_power": 0}  # CPU tensors launch nothing
 
 
 @pytest.mark.parametrize("backend", ["host", "device"])
@@ -140,7 +140,7 @@ def test_golden_pitch_grid_through_the_port(backend, tmp_path, monkeypatch):
 
 _BLOCKED_RUN = textwrap.dedent(
     """
-    import importlib, importlib.abc, os, pkgutil, sys
+    import importlib, importlib.abc, os, pkgutil, sys, wave
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -166,8 +166,31 @@ _BLOCKED_RUN = textwrap.dedent(
     r = FAST_process_single_orbit(7, m[7], load_filtered_orbits(tmp + "/c.tsv"), 6.25, "log", "log", insts,
                                   "inferno", tmp + "/plots", global_extrema=ex)
     assert r["status"] == "ok", r
-    assert not any(k.split(".")[0] in ("jax", "jaxlib", "configurable_spectrograms_tpu") for k in sys.modules)
     print("PNGS", sum(len(f) for _, _, f in os.walk(tmp + "/plots")))
+
+    import numpy as np
+    from configurable_spectrograms_torch.cli import audio
+    from configurable_spectrograms_torch.data.cdf_utils import load_fast_cdf_dataset
+    from configurable_spectrograms_torch.generic_batch import generic_batch_plot
+
+    with wave.open(tmp + "/a.wav", "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(8000)
+        w.writeframes((np.sin(np.arange(8000) * 0.3) * 9000).astype("<i2").tobytes())
+    sys.argv = ["audio", "--wav-file", tmp + "/a.wav", "--output", tmp + "/a.png", "--stft-method", "pallas",
+                "--frame-length", "256", "--hop-length", "64", "--n-mels", "16"]
+    assert audio.main() == 0 and os.path.exists(tmp + "/a.png")
+
+    def build(inst):
+        d = load_fast_cdf_dataset(m[7][inst])
+        return [{"x": d["times"], "y": d["energy"], "data": d["data"], "label": inst}]
+
+    res = generic_batch_plot(list(insts), tmp + "/generic", build, progress_json_path=tmp + "/g.json",
+                             install_signal_handlers=False)
+    assert dict(res) == {i: "ok" for i in insts}, res
+    assert not any(k.split(".")[0] in ("jax", "jaxlib", "configurable_spectrograms_tpu") for k in sys.modules)
+    print("GENERIC", sum(len(f) for _, _, f in os.walk(tmp + "/generic")))
     """
 )
 
@@ -179,3 +202,4 @@ def test_port_imports_and_runs_the_slice_with_jax_blocked(tmp_path):
                           env=env, timeout=300, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "PNGS 10" in proc.stdout
+    assert "GENERIC 4" in proc.stdout
