@@ -13,11 +13,22 @@ Phases, one line each, in order:
 3. kernel   -- each kernel against its plain PyTorch version on the card:
                collapse and fused_quantize at 8192x64x128 and 2048x32x48
                (seeded inputs with NaN and +/-inf cells, t_valid < T, partial
-               pitch masks, a time window, both z scales); stft_power on 600 s
-               of seeded 44.1 kHz audio at L = 1024, hop = 256 (F = 103,356,
-               K = 513) and L = 8192, hop = 2048 (F = 12,916, K = 4097), within
-               |a - b| <= 1e-4 * max(|a|, 1e-3 * max|a|) + 1e-2 of the plain
-               version.  CUDA-event timings (median of 20 after warm-up).
+               pitch masks, a time window, both z scales); the collapse also,
+               bit for bit, on two cubes with interleaved lanes, on more lanes
+               of one cube than a lane group holds, and in the extrema layout
+               (four all-pitch lanes, one a cube, different t_valid) beside
+               torch.nansum; stft_power on 600 s of seeded 44.1 kHz audio at
+               L = 1024, hop = 256 (F = 103,356, K = 513) and L = 8192,
+               hop = 2048 (F = 12,916, K = 4097), and on 30 s of it at
+               L = 1000 with hop = 250 (4-byte copies) and hop = 200 (an L
+               tail), within |a - b| <= 1e-4 * max(|a|, 1e-3 * max|a|) + 1e-2
+               of the plain version, and (L = 1024 and L = 1000) with a float64
+               error within 4x the plain version's; cuBLAS (two matmuls on a
+               contiguous copy of the frames) timed beside it.  CUDA-event
+               timings: the median of 5 windows of 4 back-to-back calls after
+               warm-up (plain versions: 2 windows).  Each [kernel] line has
+               bound_ms (the larger of bytes / 3.35 TB/s and, for stft_power,
+               3 x 4FKL / 495 TFLOP/s), bound_share and library_ms.
 4. e2e      -- a synthetic archive (3 orbits at 2048x32x48, 1 orbit at
                8192x64x128, 4 instruments): the extrema pre-pass and the
                log/log per-orbit render on the device, then again with
@@ -71,7 +82,16 @@ SOURCES = {
     "stft_power": "configurable_spectrograms_torch/csrc/stft_power.cu",
 }
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA's data sheet (SXM, 700 W)
-H100_FP32_FLOPS = 67e12  # non-tensor fp32, NVIDIA's data sheet (SXM, 700 W)
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor cores, NVIDIA's data sheet (SXM, 700 W)
+STFT_EXTRA_SECONDS = 30  # audio for the odd shapes of the stft_power check
+STFT_EXTRA_SHAPES = ((1000, 250), (1000, 200))  # hop % 4 != 0 (4-byte copies); L % 16 != 0 (an L tail)
+
+
+def bound(nbytes: float, flop: float = 0.0, flops: float = H100_TF32_FLOPS) -> tuple[float, str]:
+    """(least ms on the card, "bytes" or "operations"): the larger of bytes / HBM rate and FLOP / peak."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flop / flops * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def require(ok: bool, message: str) -> None:
@@ -92,21 +112,27 @@ def nvidia_smi_line() -> str:
     return out[0].strip()
 
 
-def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` on the current stream (CUDA events)."""
+def cuda_time_ms(fn, reps: int = 20, warmup: int = 3, window: int = 4) -> float:
+    """Milliseconds of one ``fn()`` on the current stream: CUDA events around *window*
+    back-to-back calls, the median over ``reps // window`` windows, after warm-up.
+
+    Where a call's host work (the Python wrapper, the launch) takes longer than
+    its device work, this measures the host: that is what a caller waits for.
+    """
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(max(1, reps // window)):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(window):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / window)
     return float(np.median(times))
 
 
@@ -139,6 +165,83 @@ def kernel_inputs(T: int, A: int, E: int, seed: int):
     }
 
 
+def collapse_case(K, name: str, cubes, u_idx, masks, t_valid, library=None) -> dict:
+    """One collapse layout: bit-exact against the plain version, timed, with its bound.
+
+    *library*, where given, is one PyTorch call computing the same sums
+    (``torch.nansum`` over pitch), timed beside the kernel.
+    """
+    import torch
+
+    args = (cubes, u_idx, masks, t_valid)
+    got = K.collapse_lanes(*args)
+    want = K.collapse_lanes_plain(*args)
+    torch.cuda.synchronize()
+    nan_same = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+    fin = ~torch.isnan(want)
+    exact = bool(torch.equal(got[fin], want[fin]))
+    diff = (got[fin] - want[fin]).abs()
+    diff = torch.where(torch.isnan(diff), torch.zeros_like(diff), diff)  # inf - inf
+    err = float(diff.max()) if diff.numel() else 0.0
+    del got, want, fin, diff
+    ms = cuda_time_ms(lambda: K.collapse_lanes(*args))
+    plain_ms = cuda_time_ms(lambda: K.collapse_lanes_plain(*args), reps=10)
+    library_ms = cuda_time_ms(library) if library is not None else None
+    _, T, A, E = cubes.shape
+    L = int(u_idx.shape[0])
+    u = u_idx.cpu().numpy()
+    m = masks.cpu().numpy()
+    tv = t_valid.cpu().numpy()
+
+    def slices(lanes) -> int:
+        """Bytes of the (t, a) rows some lane of *lanes* needs: its selected bins below its t_valid."""
+        return E * 4 * int(np.clip(tv[lanes], 0, T).max()) * int(m[lanes].any(axis=0).sum())
+
+    # Least bytes: each used cube's needed rows once, each lane's (T, E) written once.
+    out_bytes = L * T * E * 4
+    need = sum(slices(np.flatnonzero(u == c)) for c in np.unique(u)) + out_bytes
+    # What the kernel reads: each group's needed rows once.
+    groups = K.lane_groups(u_idx)
+    read = sum(slices(np.array(g)) for g in groups)
+    bound_ms, bound_by = bound(need)
+    say("kernel", name="collapse", case=name, shape=f"{T}x{A}x{E}", cubes=len(np.unique(u)), lanes=L,
+        groups=len(groups), exact=exact, nan_same=nan_same, max_abs_err=err, ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", library_ms=None if library_ms is None else f"{library_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, bound_share=f"{bound_ms / ms:.3f}",
+        read_GBps=f"{(read + out_bytes) / ms / 1e6:.1f}")
+    require(exact and nan_same, f"collapse kernel differs from its plain version: {name} at {T}x{A}x{E}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def check_collapse_layouts(K, device) -> None:
+    """The lane layouts besides one bucket on one cube: two cubes, more lanes than a group, extrema."""
+    import torch
+
+    T, A, E = SHAPES[1]
+    x = kernel_inputs(T, A, E, seed=2)
+    cube = torch.from_numpy(x["cube"][0]).to(device)
+    masks = torch.from_numpy(x["masks"]).to(device)
+    two = torch.stack([cube, cube.flip(0) * 1.5])
+    u = torch.tensor([0, 1, 0, 1, 1, 0, 1, 0], dtype=torch.int32, device=device)
+    tv = torch.tensor([T, T - 5, T - 37, T, 1, T, T - 100, 7], dtype=torch.int32, device=device)
+    collapse_case(K, "two_cubes_interleaved", two, u, masks, tv)
+    n = K.COLLAPSE_GROUP + 3
+    many = torch.cat([masks, masks[:3].flip(1)])
+    tv = torch.arange(T, T - n, -1, dtype=torch.int32, device=device)
+    collapse_case(K, f"{n}_lanes_one_cube", cube[None], torch.zeros(n, dtype=torch.int32, device=device), many, tv)
+
+    # The extrema pre-pass: one all-pitch lane per cube, at the real cube size.
+    T, A, E = SHAPES[0]
+    big = torch.from_numpy(kernel_inputs(T, A, E, seed=3)["cube"][0]).to(device)
+    cubes = torch.stack([big, big.flip(0), big * 1.5, big.roll(7, dims=2)])
+    del big
+    tv = torch.tensor([T, T - 37, T - T // 8, 1], dtype=torch.int32, device=device)
+    collapse_case(K, "extrema_4_cubes", cubes, torch.arange(4, dtype=torch.int32, device=device),
+                  torch.ones((4, A), dtype=torch.bool, device=device), tv,
+                  library=lambda: torch.nansum(cubes, dim=2))
+
+
 def check_kernels(device) -> dict:
     """Kernel vs plain on the card at each shape; returns the record per kernel."""
     import torch
@@ -149,27 +252,12 @@ def check_kernels(device) -> dict:
     for si, (T, A, E) in enumerate(SHAPES):
         x = {k: torch.from_numpy(v).to(device) for k, v in kernel_inputs(T, A, E, seed=si).items()}
         args = (x["cube"], x["u_idx"], x["masks"], x["t_valid"])
-        got = K.collapse_lanes(*args)
-        want = collapsed = K.collapse_lanes_plain(*args)
-        torch.cuda.synchronize()
-        nan_same = torch.equal(torch.isnan(got), torch.isnan(want))
-        fin = ~torch.isnan(want)
-        exact = bool(torch.equal(got[fin], want[fin]))
-        diff = (got[fin] - want[fin]).abs()
-        diff = torch.where(torch.isnan(diff), torch.zeros_like(diff), diff)  # inf - inf
-        err = float(diff.max()) if diff.numel() else 0.0
-        ms = cuda_time_ms(lambda: K.collapse_lanes(*args))
-        plain_ms = cuda_time_ms(lambda: K.collapse_lanes_plain(*args), reps=10)
-        # Bytes the kernel moves: each lane reads its selected pitch slices, writes (T, E).
+        rec = collapse_case(K, "bucket_8_lanes", *args)
+        if si == 0:
+            records["collapse"] = rec
+        collapsed = K.collapse_lanes_plain(*args)
         sel = int(x["masks"].sum())
         read = T * E * 4 * sel
-        moved = read + 8 * T * E * 4
-        say("kernel", name="collapse", shape=f"{T}x{A}x{E}", lanes=8, exact=exact, nan_same=nan_same,
-            max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            read_GBps=f"{read / ms / 1e6:.1f}", hbm_share=f"{moved / (ms * 1e-3) / H100_BYTES_PER_S:.3f}")
-        require(exact and nan_same, f"collapse kernel differs from its plain version at {T}x{A}x{E}")
-        if si == 0:
-            records["collapse"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
         for z_scale in ("log", "linear"):
             zb = np.tile(np.array([[2.0, 900.0]], np.float32), (8, 1))
@@ -193,15 +281,21 @@ def check_kernels(device) -> dict:
             ms = cuda_time_ms(lambda: K.fused_quantize_lanes(*fargs, z_scale=z_scale))
             plain_ms = cuda_time_ms(lambda: K.fused_quantize_lanes_plain(*fargs, z_scale=z_scale), reps=10)
             moved = read + 8 * T * E * (4 + 4 + 1)  # + scratch write and re-read, uint8 out
+            # Least bytes: the cube once (a lane selects every pitch bin), the uint8 indices once.
+            bound_ms, bound_by = bound(T * A * E * 4 + 8 * T * E)
             say("kernel", name="fused_quantize", z=z_scale, shape=f"{T}x{A}x{E}", lanes=8,
                 cells_off_by_one=n_diff, of_them_on_a_bin_boundary=n_boundary, max_bin_diff=max_bin,
                 vmin_exact=vmin_ok, col_all_nan_exact=nan_ok, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                library_ms=None, bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, bound_share=f"{bound_ms / ms:.3f}",
                 read_GBps=f"{(read + 8 * T * E * 4) / ms / 1e6:.1f}",
                 hbm_share=f"{moved / (ms * 1e-3) / H100_BYTES_PER_S:.3f}")
             require(max_bin <= 1 and n_boundary == n_diff and vmin_ok and nan_ok,
                     f"fused kernel outside its contract at {T}x{A}x{E} z={z_scale}")
             if si == 0 and z_scale == "log":
-                records["fused_quantize"] = {"max_abs_err": float(max_bin), "ms": ms, "plain_ms": plain_ms}
+                records["fused_quantize"] = {"max_abs_err": float(max_bin), "ms": ms, "plain_ms": plain_ms,
+                                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        del x, args, collapsed
+    check_collapse_layouts(K, device)
     return records
 
 
@@ -484,35 +578,76 @@ def make_audio(seconds: float, rate: int, seed: int = 0) -> np.ndarray:
     return np.round(x * 32767.0).astype(np.int16)
 
 
+def stft_case(K, x, L: int, hop: int, f64: bool = False) -> dict:
+    """stft_power against its plain version on one (L, hop), timed, with its bound and cuBLAS beside it.
+
+    With *f64*, also the largest error of the kernel and of the plain
+    version against float64 products of the same frames and bases: the
+    kernel's must be within 4x the plain version's (3xTF32 keeps fp32
+    quality, not only the tolerance).
+    """
+    import torch
+
+    from configurable_spectrograms_torch.ops.stft import _dft_bases, frame_signal
+
+    frames = frame_signal(x, L, hop)
+    cos_b, sin_b = (torch.from_numpy(b).to(x.device) for b in _dft_bases(L))
+    F, K_bins = frames.shape[0], cos_b.shape[1]
+    got = K.stft_power(frames, cos_b, sin_b)
+    want = K.stft_power_plain(frames, cos_b, sin_b)
+    torch.cuda.synchronize()
+    err, ratio = stft_tolerance(want, got)
+    f64_fields = {}
+    if f64:
+        fd = frames.double()
+        ref = (fd @ cos_b.double()).square_() + (fd @ sin_b.double()).square_()
+        del fd
+        err_k = float((got.double() - ref).abs().max())
+        err_p = float((want.double() - ref).abs().max())
+        del ref
+        f64_fields = {"f64_err_kernel": err_k, "f64_err_plain": err_p, "f64_err_ratio": f"{err_k / err_p:.3f}"}
+    del got, want
+    ms = cuda_time_ms(lambda: K.stft_power(frames, cos_b, sin_b))
+    plain_ms = cuda_time_ms(lambda: K.stft_power_plain(frames, cos_b, sin_b), reps=10)
+    prep_ms = cuda_time_ms(lambda: K.stft_bases_t(cos_b, sin_b))
+    fc = frames.contiguous()  # the yardstick is cuBLAS itself, not the copy of the frames
+
+    def library():
+        re = fc @ cos_b
+        im = fc @ sin_b
+        return re * re + im * im
+
+    library_ms = cuda_time_ms(library)
+    del fc
+    flop = 4.0 * F * K_bins * L  # two products, one FMA = 2 FLOP
+    # Least bytes: the signal the frames span, both bases, the output; 3 TF32 products a product.
+    nbytes = 4.0 * ((F - 1) * hop + L + 2 * L * K_bins + F * K_bins)
+    bound_ms, bound_by = bound(nbytes, 3.0 * flop)
+    staging = "cp.async16" if hop % 4 == 0 and L % 4 == 0 else "cp.async4"
+    say("kernel", name="stft_power", F=F, L=L, hop=hop, K=K_bins, staging=staging, max_abs_err=err,
+        tol_ratio=f"{ratio:.3e}", **f64_fields, ms=f"{ms:.4f}", bases_prep_ms=f"{prep_ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, bound_share=f"{bound_ms / ms:.3f}", gflop=f"{flop / 1e9:.1f}",
+        GFLOPs=f"{flop / ms / 1e6:.1f}", tf32_GFLOPs=f"{3 * flop / ms / 1e6:.1f}")
+    require(ratio <= 1.0, f"stft_power outside its tolerance at F={F} L={L} hop={hop}: ratio {ratio}")
+    if f64:
+        require(err_k <= 4.0 * err_p, f"stft_power float64 error {err_k} above 4x the plain version's {err_p}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def check_stft_kernel(device, signal: np.ndarray) -> dict:
-    """stft_power against its plain version on the audio the main path reads, at both STFT_SHAPES."""
+    """stft_power on the audio the main path reads, at STFT_SHAPES, and on 30 s of it at the odd shapes."""
     import torch
 
     from configurable_spectrograms_torch.ops import kernels as K
-    from configurable_spectrograms_torch.ops.stft import _dft_bases, frame_signal
 
-    record = {}
     x = torch.from_numpy(signal).to(device)
-    for L, hop in STFT_SHAPES:
-        frames = frame_signal(x, L, hop)
-        cos_b, sin_b = (torch.from_numpy(b).to(device) for b in _dft_bases(L))
-        F, K_bins = frames.shape[0], cos_b.shape[1]
-        got = K.stft_power(frames, cos_b, sin_b)
-        want = K.stft_power_plain(frames, cos_b, sin_b)
-        torch.cuda.synchronize()
-        err, ratio = stft_tolerance(want, got)
-        del got, want
-        ms = cuda_time_ms(lambda: K.stft_power(frames, cos_b, sin_b))
-        plain_ms = cuda_time_ms(lambda: K.stft_power_plain(frames, cos_b, sin_b), reps=10)
-        flop = 4.0 * F * K_bins * L  # two products, one FMA = 2 FLOP
-        say("kernel", name="stft_power", F=F, L=L, hop=hop, K=K_bins, max_abs_err=err, tol_ratio=f"{ratio:.3e}",
-            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", gflop=f"{flop / 1e9:.1f}",
-            GFLOPs=f"{flop / ms / 1e6:.1f}", fp32_share=f"{flop / (ms * 1e-3) / H100_FP32_FLOPS:.3f}",
-            plain_GFLOPs=f"{flop / plain_ms / 1e6:.1f}")
-        require(ratio <= 1.0, f"stft_power outside its tolerance at F={F} L={L}: ratio {ratio}")
-        if not record:
-            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    return {"stft_power": record}
+    records = [stft_case(K, x, L, hop, f64=(i == 0)) for i, (L, hop) in enumerate(STFT_SHAPES)]
+    head = x[: STFT_EXTRA_SECONDS * AUDIO_RATE]
+    for L, hop in STFT_EXTRA_SHAPES:
+        stft_case(K, head, L, hop, f64=True)
+    return {"stft_power": records[0]}
 
 
 def call_main(main, argv: list[str]) -> int:
@@ -723,7 +858,8 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": r.get("launches"), "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
+         "launches": r.get("launches"), "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         for name, r in records.items()
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

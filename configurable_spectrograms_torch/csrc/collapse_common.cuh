@@ -1,10 +1,12 @@
-// Shared pieces of the pitch-collapse kernels (collapse.cu, fused_quantize.cu).
+// Shared pieces of the pitch-collapse kernels: fused_quantize.cu's
+// per-lane collapse, and the NaN of both it and collapse.cu.
 //
 // Layout: cubes (U, T, A, E) float32, contiguous; a lane l reads cube
-// u_idx[l] under its own pitch mask masks[l, :] (uint8 0/1).  A block is
-// 32 x 8 threads: threadIdx.x walks 32 adjacent energy columns (so a warp
-// reads 128 contiguous bytes of one (t, a) row), threadIdx.y walks rows,
-// and each block covers CST_ROWS_PER_BLOCK time rows of one lane.
+// u_idx[l] under its own pitch mask masks[l, :] (uint8 0/1).  A
+// fused_quantize block is 32 x 8 threads: threadIdx.x walks 32 adjacent
+// energy columns (so a warp reads 128 contiguous bytes of one (t, a) row),
+// threadIdx.y walks rows, and each block covers CST_ROWS_PER_BLOCK time
+// rows of one lane.
 #pragma once
 
 #include <cstddef>

@@ -6,14 +6,21 @@ Counterparts of ``configurable_spectrograms_tpu/ops/pallas_kernels.py``:
   (``_collapse_kernel``), batched over lanes so a whole render bucket or a
   whole extrema batch is one launch.  It is the production collapse of
   the port: the percentile (raw) render buckets and the extrema pre-pass
-  both run on it.
+  both run on it.  The kernel groups the lanes by cube (:func:`lane_groups`
+  states the rule) and reads each cube element once per group, adding it
+  to every lane of the group that selects its pitch bin; the sums stay in
+  index order, so it is bit-identical to :func:`collapse_lanes_plain`.
 * :func:`fused_quantize_lanes` replaces ``fused_quantize_pallas``
   (``_fused_quantize_kernel``): collapse + explicit-bounds colormap index
   in two launches (see ``csrc/fused_quantize.cu``).  It carries the
   given-extrema render buckets.
 * :func:`stft_power` replaces ``stft_power_pallas`` (``_stft_power_kernel``):
   the windowed-DFT power spectrogram of ``ops/stft.py``'s ``"pallas"``
-  method, read straight from the framed signal (see ``csrc/stft_power.cu``).
+  method, read straight from the framed signal, with the products on the
+  tensor cores in 3xTF32 (see ``csrc/stft_power.cu``).  Not bit-identical
+  to :func:`stft_power_plain`: on the card it is held to the plain
+  version's tolerance, and its error against a float64 product to within
+  4x the plain version's.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 launches its CUDA kernel for tensors on a CUDA device -- or raises.
@@ -42,6 +49,68 @@ _BIG_BITS = struct.unpack("<i", struct.pack("<f", _BIG))[0]
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+#: Lanes the collapse kernel serves from one read of their cube (``CST_GROUP``
+#: in ``csrc/collapse.cu``).
+COLLAPSE_GROUP = 8
+
+
+def lane_groups(u_idx, group: int = COLLAPSE_GROUP) -> list[list[int]]:
+    """The collapse kernel's lane groups: lists of lane indices, one cube each.
+
+    The lanes of each cube in index order, cut into runs of at most
+    *group*; groups are listed by their first lane.  The kernel finds the
+    same groups itself from ``u_idx`` (``csrc/collapse.cu``), so the
+    wrapper launches once with no host work; this states the rule, and
+    gives the bytes a launch reads (one pass over each group's cube).
+    """
+    runs: dict[int, list[list[int]]] = {}
+    out = []
+    for lane, u in enumerate(torch.as_tensor(u_idx).tolist()):
+        cube = runs.setdefault(u, [])
+        if not cube or len(cube[-1]) == group:
+            cube.append([])
+            out.append(cube[-1])
+        cube[-1].append(lane)
+    return out
+
+
+_TF32_HALF = 0x1000  # half a unit in the last of TF32's 10 mantissa bits
+_TF32_MASK = -0x2000  # 0xFFFFE000: sign, exponent and 10 mantissa bits
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (ties away from zero), as ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + _TF32_HALF) & _TF32_MASK).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x = hi + lo`` to about 2^-22 relative, each part with at most 11 significant bits."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+#: Padding of the prepared bases: bins to the kernel's narrowest bin tile,
+#: samples to one shared-memory stage (``csrc/stft_power.cu``).
+_STFT_BIN_PAD, _STFT_SAMPLE_PAD = 16, 16
+
+
+def stft_bases_t(cos_b: torch.Tensor, sin_b: torch.Tensor) -> torch.Tensor:
+    """(L, K) cos and sin bases -> (4, Kp, Lp) scratch: cos hi, cos lo, sin hi, sin lo.
+
+    Transposed to bins x samples (the tensor cores take TF32 operands
+    K-major only), split by :func:`tf32_split`, zero-padded to
+    ``Kp = 16 * ceil(K / 16)`` and ``Lp = 16 * ceil(L / 16)``.
+    """
+    L, K = cos_b.shape
+    Kp = -(-K // _STFT_BIN_PAD) * _STFT_BIN_PAD
+    Lp = -(-L // _STFT_SAMPLE_PAD) * _STFT_SAMPLE_PAD
+    bt = torch.zeros((4, Kp, Lp), dtype=torch.float32, device=cos_b.device)
+    for i, part in enumerate((*tf32_split(cos_b), *tf32_split(sin_b))):
+        bt[i, :K, :L] = part.t()
+    return bt
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +295,12 @@ def stft_power(frames: torch.Tensor, cos_b: torch.Tensor, sin_b: torch.Tensor) -
 
     ``frames`` may be any (F, L) float32 view with unit inner stride --
     ``signal.unfold(0, L, hop)`` is read in place, row stride ``hop``, with
-    no (F, L) copy.  ``cos_b`` / ``sin_b`` are contiguous (L, K) float32.
+    no (F, L) copy; any hop and L run.  ``cos_b`` / ``sin_b`` are contiguous
+    (L, K) float32.  On a card the products run in 3xTF32 on the tensor
+    cores, from bases this call prepares with :func:`stft_bases_t`
+    (4 x K x L floats of scratch): the result is not bit-identical to
+    :func:`stft_power_plain`, but within its tolerance, with an error
+    against a float64 product within 4x the plain version's.
     """
     if frames.dim() != 2 or frames.dtype != torch.float32:
         raise ValueError(f"frames must be (F, L) float32, got {tuple(frames.shape)} {frames.dtype}")
@@ -247,9 +321,11 @@ def stft_power(frames: torch.Tensor, cos_b: torch.Tensor, sin_b: torch.Tensor) -
     out = torch.empty((F, K), dtype=torch.float32, device=frames.device)
     if F == 0:
         return out
-    out_p, cos_p, sin_p = _cuda_args(out, cos_b, sin_b)  # one device: the frames'
+    _cuda_args(out, cos_b, sin_b)  # one device: the frames'
+    bt = stft_bases_t(cos_b, sin_b)
     stream = torch.cuda.current_stream(frames.device).cuda_stream
-    err = lib.cst_stft_power(frames.data_ptr(), frames.stride(0), F, L, cos_p, sin_p, K, out_p, stream)
+    err = lib.cst_stft_power(frames.data_ptr(), frames.stride(0), F, L, bt.data_ptr(), K, bt.shape[1],
+                             bt.shape[2], out.data_ptr(), stream)
     _raise_on(err, "cst_stft_power")
     LAUNCHES["stft_power"] += 1
     return out

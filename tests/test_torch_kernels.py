@@ -212,6 +212,64 @@ def test_wrapper_rejects_unknown_z_scale():
                                torch.tensor([[1.0, 2.0]]), z_scale="sqrt")
 
 
+@pytest.mark.parametrize(
+    "u_idx",
+    [
+        [0] * 8,
+        [0] * 11,
+        [0, 1, 0, 1, 1, 0, 1, 0],
+        [3, 2, 1, 0],
+        list(np.random.default_rng(4).integers(0, 5, 60)),
+        [],
+    ],
+)
+def test_lane_groups_cover_every_lane_once_by_cube(u_idx):
+    """The collapse kernel's grouping rule: one cube a group, at most G lanes, lanes in index order."""
+    G = K.COLLAPSE_GROUP
+    u = np.asarray(u_idx, np.int32)
+    groups = K.lane_groups(torch.from_numpy(u))
+    lanes = [lane for g in groups for lane in g]
+    assert sorted(lanes) == list(range(len(u)))  # every lane exactly once
+    for g in groups:
+        assert 1 <= len(g) <= G and len(set(u[g])) == 1
+        assert g == sorted(g)
+    # Stable: a cube's lanes, group after group, are its lanes in index order, and
+    # only the last group of a cube may be short.
+    for c in np.unique(u):
+        mine = [g for g in groups if u[g[0]] == c]
+        assert [lane for g in mine for lane in g] == list(np.flatnonzero(u == c))
+        assert all(len(g) == G for g in mine[:-1])
+    assert [g[0] for g in groups] == sorted(g[0] for g in groups)
+
+
+def test_lane_groups_take_the_kernels_group_size():
+    assert K.lane_groups(torch.zeros(20, dtype=torch.int32), 4) == [[0, 1, 2, 3], [4, 5, 6, 7], [8, 9, 10, 11],
+                                                                    [12, 13, 14, 15], [16, 17, 18, 19]]
+    assert K.COLLAPSE_GROUP == 8  # CST_GROUP in csrc/collapse.cu: one byte of lane bits a pitch bin
+
+
+@pytest.mark.cuda
+def test_cuda_collapse_layouts_match_the_plain_version():
+    """On a card: two cubes with interleaved lanes, more lanes than a group, one all-pitch lane a cube."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cube, mask = _cube(10, 200, 32, 52)
+    cubes = torch.from_numpy(np.stack([cube, cube[::-1] * 2.0])).cuda()
+    layouts = [
+        ([0, 1, 0, 1, 1, 0, 1, 0], [mask, ~mask] * 4),
+        ([0] * 11, [mask, ~mask, np.ones(32, bool)] * 3 + [mask, mask]),
+        ([0, 1], [np.ones(32, bool)] * 2),
+    ]
+    for u, masks in layouts:
+        L = len(u)
+        args = (cubes, torch.tensor(u, dtype=torch.int32).cuda(), torch.from_numpy(np.stack(masks)).cuda(),
+                torch.tensor([200 - 13 * i for i in range(L)], dtype=torch.int32).cuda())
+        _same_with_nan(K.collapse_lanes(*args).cpu().numpy(), K.collapse_lanes_plain(*args).cpu().numpy())
+    # E % 4 != 0 takes the 4-byte path.
+    args = [a.cuda() for a in _lanes(cube[:, :, :50].copy(), [mask, ~mask], [200, 150])]
+    _same_with_nan(K.collapse_lanes(*args).cpu().numpy(), K.collapse_lanes_plain(*args).cpu().numpy())
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     """On a card: each kernel against its plain version (chip_smoke.py does this at full size)."""

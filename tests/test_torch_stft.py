@@ -253,6 +253,73 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert K.LAUNCHES == before and "stft_power" in K.LAUNCHES
 
 
+def _tolerance_ratio(ref: np.ndarray, got: np.ndarray) -> float:
+    """Largest ``|got - ref| / (1e-4 * max(|ref|, 1e-3 * max|ref|) + 1e-2)``: <= 1 passes."""
+    scale = np.maximum(np.abs(ref), 1e-3 * np.abs(ref).max())
+    return float((np.abs(got.astype(np.float64) - ref) / (1e-4 * scale + 1e-2)).max())
+
+
+@pytest.mark.parametrize("L", [256, 1000, 1024])
+def test_tf32_split_of_the_bases(L):
+    """hi + lo gives back the bases to 2^-21 relative; each part keeps at most 11 significant bits."""
+    for b in (torch.from_numpy(x) for x in tstft._dft_bases(L)):
+        hi, lo = K.tf32_split(b)
+        for part in (hi, lo):
+            assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0  # 13 low mantissa bits clear
+        rebuilt = hi.double() + lo.double()
+        assert float(((rebuilt - b.double()).abs() / b.double().abs().clamp_min(1e-30)).max()) <= 2.0 ** -21
+        assert torch.equal(hi, K.tf32_round(b)) and torch.equal(K.tf32_round(hi), hi)
+
+
+@pytest.mark.parametrize("L", [256, 1000])
+def test_stft_bases_t_layout(L):
+    """(4, Kp, Lp): cos hi, cos lo, sin hi, sin lo, bins x samples, zero-padded to multiples of 16."""
+    cos_b, sin_b = (torch.from_numpy(x) for x in tstft._dft_bases(L))
+    Kb = cos_b.shape[1]
+    bt = K.stft_bases_t(cos_b, sin_b)
+    Kp, Lp = -(-Kb // 16) * 16, -(-L // 16) * 16
+    assert tuple(bt.shape) == (4, Kp, Lp) and bt.is_contiguous()
+    for i, part in enumerate((*K.tf32_split(cos_b), *K.tf32_split(sin_b))):
+        assert torch.equal(bt[i, :Kb, :L], part.t())
+    assert not bt[:, Kb:, :].any() and not bt[:, :, L:].any()
+
+
+def _emulated_tf32_power(frames: np.ndarray, cos_b: np.ndarray, sin_b: np.ndarray, terms: int) -> np.ndarray:
+    """The kernel's arithmetic in numpy: TF32 operands, each k8 step's products summed, then
+    one rounded float32 add into the running sum.  ``terms=3`` is the kernel's split
+    (lo*hi + hi*lo + hi*hi), ``terms=1`` plain TF32 (hi*hi)."""
+    f_hi, f_lo = (t.numpy().astype(np.float64) for t in K.tf32_split(torch.from_numpy(frames)))
+    out = []
+    for b in (cos_b, sin_b):
+        b_hi, b_lo = (t.numpy().astype(np.float64) for t in K.tf32_split(torch.from_numpy(b)))
+        acc = np.zeros((frames.shape[0], b.shape[1]), np.float32)
+        for k in range(0, frames.shape[1], 8):
+            s = slice(k, k + 8)
+            step = f_hi[:, s] @ b_hi[s]
+            if terms == 3:
+                step = f_lo[:, s] @ b_hi[s] + f_hi[:, s] @ b_lo[s] + step
+            acc = acc + step.astype(np.float32)
+        out.append(acc)
+    re, im = out
+    return re * re + im * im
+
+
+def test_3xtf32_emulation_stays_within_the_tolerance_and_1xtf32_does_not():
+    """Why the kernel splits: at F = 64, L = 1024 on seeded 16-bit audio, three TF32 products
+    stay well inside the plain version's tolerance; one TF32 product does not."""
+    L, hop, F = 1024, 256, 64
+    rng = np.random.default_rng(12)
+    t = np.arange((F - 1) * hop + L) / 44100.0
+    x = 0.3 * np.sin(2 * np.pi * (50.0 + 3000.0 * t) * t) + 0.2 * np.sin(2 * np.pi * 440.0 * t)
+    x = np.round((x + 0.01 * rng.standard_normal(t.size)) * 32767.0).astype(np.float32) / 32768.0
+    frames = tstft.frame_signal(torch.from_numpy(x), L, hop)
+    cos_b, sin_b = tstft._dft_bases(L)
+    plain = K.stft_power_plain(frames, torch.from_numpy(cos_b), torch.from_numpy(sin_b)).numpy()
+    frames = np.ascontiguousarray(frames.numpy())
+    assert _tolerance_ratio(plain, _emulated_tf32_power(frames, cos_b, sin_b, terms=3)) < 0.5
+    assert _tolerance_ratio(plain, _emulated_tf32_power(frames, cos_b, sin_b, terms=1)) > 1.0
+
+
 @pytest.mark.cuda
 def test_cuda_stft_power_matches_its_plain_version():
     """On a card: the kernel against its plain version (chip_smoke.py does this at full size)."""
@@ -261,7 +328,10 @@ def test_cuda_stft_power_matches_its_plain_version():
     from configurable_spectrograms_torch.utils.torch_setup import get_device
 
     get_device()  # TF32 off for the plain version's matmuls
-    for L, hop, n in ((1024, 256, 200_000), (8192, 2048, 100_000), (200, 70, 9_999)):
+    # The CLI default, past the JAX gate, hops that are not a multiple of 4 (4-byte
+    # copies), an L tail (L % 16 != 0); F and K off every tile multiple.
+    for L, hop, n in ((1024, 256, 200_000), (8192, 2048, 100_000), (200, 70, 9_999), (1000, 250, 60_000),
+                      (1000, 200, 60_000), (998, 256, 30_000)):
         x = torch.from_numpy(_signal(n, L)).cuda()
         frames = tstft.frame_signal(x, L, hop)
         cos_b, sin_b = (torch.from_numpy(b).cuda() for b in tstft._dft_bases(L))
@@ -270,3 +340,7 @@ def test_cuda_stft_power_matches_its_plain_version():
         assert K.LAUNCHES["stft_power"] == before + 1
         want = K.stft_power_plain(frames, cos_b, sin_b)
         _within_kernel_tolerance(want.cpu().numpy(), got.cpu().numpy())
+        fd = frames.double()
+        ref = (fd @ cos_b.double()) ** 2 + (fd @ sin_b.double()) ** 2
+        # 3xTF32 keeps fp32 quality: within 4x the plain version's error against float64.
+        assert float((got.double() - ref).abs().max()) <= 4.0 * float((want.double() - ref).abs().max())
