@@ -13,13 +13,17 @@ Phases, one line each, in order:
 3. kernel   -- each kernel against its plain PyTorch version on the card:
                collapse and fused_quantize at 8192x64x128 and 2048x32x48
                (seeded inputs with NaN and +/-inf cells, t_valid < T, partial
-               pitch masks, a time window, both z scales); the collapse also,
-               bit for bit, on two cubes with interleaved lanes, on more lanes
-               of one cube than a lane group holds, and in the extrema layout
-               (four all-pitch lanes, one a cube, different t_valid) beside
-               torch.nansum; stft_power on 600 s of seeded 44.1 kHz audio at
-               L = 1024, hop = 256 (F = 103,356, K = 513) and L = 8192,
-               hop = 2048 (F = 12,916, K = 4097), and on 30 s of it at
+               pitch masks, a time window, both z scales); both also on two
+               cubes with interleaved lanes and on more lanes of one cube
+               than a lane group holds; fused_quantize also with lanes whose
+               window holds no finite positive value (the 1e-10 floor) and a
+               lane with no file rows, and with its two launches timed apart
+               (does the quantize find the scratch in L2?); the collapse also
+               in the extrema layout (four all-pitch lanes, one a cube,
+               different t_valid) beside torch.nansum; stft_power on 600 s
+               of seeded 44.1 kHz audio at L = 1024, hop = 256 (F = 103,356,
+               K = 513) and L = 8192, hop = 2048 (F = 12,916, K = 4097), and
+               on 30 s of it at
                L = 1000 with hop = 250 (4-byte copies) and hop = 200 (an L
                tail), within |a - b| <= 1e-4 * max(|a|, 1e-3 * max|a|) + 1e-2
                of the plain version, and (L = 1024 and L = 1000) with a float64
@@ -165,6 +169,27 @@ def kernel_inputs(T: int, A: int, E: int, seed: int):
     }
 
 
+def lane_bytes(K, cubes, u_idx, masks, t_valid) -> tuple[int, int, int]:
+    """(bytes a lane layout must read, bytes the grouped collapse reads, its number of lane groups).
+
+    A lane needs the (t, a) rows of its cube at its selected bins below its
+    t_valid.  The least read is each used cube's needed rows once; the
+    collapse kernels read each lane group's needed rows once
+    (``kernels.lane_groups`` states the grouping).
+    """
+    _, T, A, E = cubes.shape
+    u = u_idx.cpu().numpy()
+    m = masks.cpu().numpy()
+    tv = t_valid.cpu().numpy()
+
+    def slices(lanes) -> int:
+        return E * 4 * int(np.clip(tv[lanes], 0, T).max()) * int(m[lanes].any(axis=0).sum())
+
+    need = sum(slices(np.flatnonzero(u == c)) for c in np.unique(u))
+    groups = K.lane_groups(u_idx)
+    return need, sum(slices(np.array(g)) for g in groups), len(groups)
+
+
 def collapse_case(K, name: str, cubes, u_idx, masks, t_valid, library=None) -> dict:
     """One collapse layout: bit-exact against the plain version, timed, with its bound.
 
@@ -189,23 +214,12 @@ def collapse_case(K, name: str, cubes, u_idx, masks, t_valid, library=None) -> d
     library_ms = cuda_time_ms(library) if library is not None else None
     _, T, A, E = cubes.shape
     L = int(u_idx.shape[0])
-    u = u_idx.cpu().numpy()
-    m = masks.cpu().numpy()
-    tv = t_valid.cpu().numpy()
-
-    def slices(lanes) -> int:
-        """Bytes of the (t, a) rows some lane of *lanes* needs: its selected bins below its t_valid."""
-        return E * 4 * int(np.clip(tv[lanes], 0, T).max()) * int(m[lanes].any(axis=0).sum())
-
-    # Least bytes: each used cube's needed rows once, each lane's (T, E) written once.
+    need, read, groups = lane_bytes(K, cubes, u_idx, masks, t_valid)
     out_bytes = L * T * E * 4
-    need = sum(slices(np.flatnonzero(u == c)) for c in np.unique(u)) + out_bytes
-    # What the kernel reads: each group's needed rows once.
-    groups = K.lane_groups(u_idx)
-    read = sum(slices(np.array(g)) for g in groups)
-    bound_ms, bound_by = bound(need)
-    say("kernel", name="collapse", case=name, shape=f"{T}x{A}x{E}", cubes=len(np.unique(u)), lanes=L,
-        groups=len(groups), exact=exact, nan_same=nan_same, max_abs_err=err, ms=f"{ms:.4f}",
+    # Least bytes: each used cube's needed rows once, each lane's (T, E) written once.
+    bound_ms, bound_by = bound(need + out_bytes)
+    say("kernel", name="collapse", case=name, shape=f"{T}x{A}x{E}", cubes=len(torch.unique(u_idx)), lanes=L,
+        groups=groups, exact=exact, nan_same=nan_same, max_abs_err=err, ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", library_ms=None if library_ms is None else f"{library_ms:.4f}",
         bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, bound_share=f"{bound_ms / ms:.3f}",
         read_GBps=f"{(read + out_bytes) / ms / 1e6:.1f}")
@@ -242,6 +256,138 @@ def check_collapse_layouts(K, device) -> None:
                   library=lambda: torch.nansum(cubes, dim=2))
 
 
+def fused_case(K, name: str, fargs: tuple, z_scale: str) -> dict:
+    """One fused layout in one z scale: held to its contract against the plain version, timed, with its bound.
+
+    The contract: vmin and col_all_nan bit-exact, idx within one bin, and
+    every cell one bin apart on a provable bin boundary (the two float32
+    log10s, log10f and torch's, may round apart there).
+    """
+    import torch
+
+    cubes, u_idx, masks, e_valid, t_valid = fargs[:5]
+    zb = fargs[7]
+    _, T, A, E = cubes.shape
+    L = int(u_idx.shape[0])
+    got = K.fused_quantize_lanes(*fargs, z_scale=z_scale)
+    want = K.fused_quantize_lanes_plain(*fargs, z_scale=z_scale)
+    torch.cuda.synchronize()
+    d = (got["idx"].int() - want["idx"].int()).abs()
+    n_diff = int((d > 0).sum())
+    max_bin = int(d.max())
+    vmin_ok = bool(torch.equal(got["vmin"], want["vmin"]))
+    nan_ok = bool(torch.equal(got["col_all_nan"], want["col_all_nan"]))
+    n_boundary = 0
+    lanes_off = torch.nonzero((d > 0).any(dim=2).any(dim=1)).flatten().tolist()
+    if lanes_off:
+        collapsed = K.collapse_lanes_plain(cubes, u_idx, masks, t_valid)
+        for j in lanes_off:
+            n_boundary += int(boundary_mask(collapsed[j].cpu().numpy(), float(want["vmin"][j]), float(zb[j, 1]),
+                                            z_scale, (d[j] > 0).cpu().numpy()).sum())
+        del collapsed
+    floored = int((want["vmin"] == 1e-10).sum()) if z_scale == "log" else 0
+    del got, want, d
+    ms = cuda_time_ms(lambda: K.fused_quantize_lanes(*fargs, z_scale=z_scale))
+    plain_ms = cuda_time_ms(lambda: K.fused_quantize_lanes_plain(*fargs, z_scale=z_scale), reps=10)
+    need, read, groups = lane_bytes(K, cubes, u_idx, masks, t_valid)
+    # Least bytes: each used cube's needed rows once, the uint8 indices once.
+    bound_ms, bound_by = bound(need + L * T * E)
+    # What this design moves: each group's needed rows once, the float32
+    # scratch written and read back, the uint8 indices written.
+    moved = read + L * T * E * (4 + 4 + 1)
+    say("kernel", name="fused_quantize", case=name, z=z_scale, shape=f"{T}x{A}x{E}",
+        cubes=len(torch.unique(u_idx)), lanes=L, groups=groups, lanes_floored=floored,
+        cells_off_by_one=n_diff, of_them_on_a_bin_boundary=n_boundary, max_bin_diff=max_bin,
+        vmin_exact=vmin_ok, col_all_nan_exact=nan_ok, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        library_ms=None, bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, bound_share=f"{bound_ms / ms:.3f}",
+        read_GBps=f"{moved / ms / 1e6:.1f}", hbm_share=f"{moved / (ms * 1e-3) / H100_BYTES_PER_S:.3f}")
+    require(max_bin <= 1 and n_boundary == n_diff and vmin_ok and nan_ok,
+            f"fused kernel outside its contract: {name} at {T}x{A}x{E} z={z_scale}")
+    return {"max_abs_err": float(max_bin), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def fused_phases(K, fargs: tuple, z_scale: str) -> None:
+    """Time the fused kernel's two launches apart: does launch 2 find the scratch in L2?
+
+    Launch 2 alone back to back reads a scratch that the previous call left
+    in L2 (warm); after a 256 MB write it reads it from HBM (cold).  Where
+    the two differ, the whole call minus launch 1 tells which it found;
+    where they are equal, launch 2 does not wait on its re-read.
+    """
+    import torch
+
+    cubes, u_idx = fargs[:2]
+    _, T, A, E = cubes.shape
+    L = int(u_idx.shape[0])
+    work, out = K.fused_buffers(L, T, E, cubes.device)
+
+    def run(phases):
+        return lambda: K.fused_launch(fargs, z_scale, work, out, phases)
+
+    both = cuda_time_ms(run(K.FUSED_BOTH))
+    stats = cuda_time_ms(run(K.FUSED_STATS))
+    warm = cuda_time_ms(run(K.FUSED_MAP))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=cubes.device)
+    cold = []
+    for _ in range(5):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(K.FUSED_MAP)()
+        end.record()
+        end.synchronize()
+        cold.append(start.elapsed_time(end))
+    del flush, work, out
+    say("kernel", name="fused_quantize", case="launches_apart", z=z_scale, shape=f"{T}x{A}x{E}", lanes=L,
+        both_ms=f"{both:.4f}", stats_ms=f"{stats:.4f}", map_l2_warm_ms=f"{warm:.4f}",
+        map_cold_ms=f"{float(np.median(cold)):.4f}", both_minus_stats_ms=f"{both - stats:.4f}")
+
+
+def fused_layouts(x: dict, device) -> list[tuple[str, tuple]]:
+    """The fused kernel's lane layouts on one bucket's inputs, as (name, fused_quantize_lanes args).
+
+    The bucket itself (8 lanes, one cube); two cubes with interleaved lanes;
+    11 lanes on one cube (two groups); and the bucket with lanes whose
+    window holds no finite positive value (an empty window, no valid
+    energy, no pitch bin: with vmin 1e-12 the 1e-10 floor shows in log z),
+    beside a lane with no file rows (all NaN).
+    """
+    import torch
+
+    T = x["cube"].shape[1]
+    zb = np.tile(np.array([[2.0, 900.0]], np.float32), (8, 1))
+    zb[1] = (0.5, 40.0)
+
+    def dev(**a):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in a.items()}
+
+    def args(d):
+        return (d["cube"], d["u_idx"], d["masks"], d["e_valid"], d["t_valid"], d["t_start"], d["t_count"], d["zb"])
+
+    out = [("bucket_8_lanes", args(dev(**x, zb=zb)))]
+    two = dev(**{**x, "cube": np.concatenate([x["cube"], x["cube"][:, ::-1] * np.float32(1.5)]), "zb": zb,
+                 "u_idx": np.array([0, 1, 0, 1, 1, 0, 1, 0], np.int32),
+                 "t_valid": np.array([T, T - 5, T - 37, T, 1, T, T - 100, 7], np.int32)})
+    out.append(("two_cubes_interleaved", args(two)))
+    n = 11
+    pick = list(range(8)) + [0, 1, 2]
+    many = dev(cube=x["cube"], u_idx=np.zeros(n, np.int32),
+               masks=np.concatenate([x["masks"], x["masks"][:3, ::-1]]), e_valid=x["e_valid"][pick],
+               t_valid=np.arange(T, T - n, -1, dtype=np.int32), t_start=x["t_start"][pick],
+               t_count=x["t_count"][pick], zb=zb[pick])
+    out.append((f"{n}_lanes_one_cube", args(many)))
+    none = {k: v.copy() for k, v in x.items() if k != "cube"}
+    zb_none = zb.copy()
+    zb_none[:3, 0] = 1e-12
+    none["t_count"][0] = 0  # an empty window
+    none["e_valid"][1] = False  # no valid energy
+    none["masks"][2] = False  # no pitch bin: every sum is +0.0
+    none["t_valid"][5] = 0  # no file rows: every cell NaN, every column all-NaN
+    out.append(("no_positive_value", args(dev(cube=x["cube"], **none, zb=zb_none))))
+    return out
+
+
 def check_kernels(device) -> dict:
     """Kernel vs plain on the card at each shape; returns the record per kernel."""
     import torch
@@ -250,51 +396,20 @@ def check_kernels(device) -> dict:
 
     records = {}
     for si, (T, A, E) in enumerate(SHAPES):
-        x = {k: torch.from_numpy(v).to(device) for k, v in kernel_inputs(T, A, E, seed=si).items()}
-        args = (x["cube"], x["u_idx"], x["masks"], x["t_valid"])
-        rec = collapse_case(K, "bucket_8_lanes", *args)
+        x = kernel_inputs(T, A, E, seed=si)
+        layouts = fused_layouts(x, device)
+        bucket = layouts[0][1]
+        rec = collapse_case(K, "bucket_8_lanes", bucket[0], bucket[1], bucket[2], bucket[4])
         if si == 0:
             records["collapse"] = rec
-        collapsed = K.collapse_lanes_plain(*args)
-        sel = int(x["masks"].sum())
-        read = T * E * 4 * sel
-
+        for name, fargs in layouts:
+            for z_scale in ("log", "linear"):
+                rec = fused_case(K, name, fargs, z_scale)
+                if si == 0 and z_scale == "log" and name == "bucket_8_lanes":
+                    records["fused_quantize"] = rec
         for z_scale in ("log", "linear"):
-            zb = np.tile(np.array([[2.0, 900.0]], np.float32), (8, 1))
-            zb[1] = (0.5, 40.0)
-            fargs = (x["cube"], x["u_idx"], x["masks"], x["e_valid"], x["t_valid"], x["t_start"],
-                     x["t_count"], torch.from_numpy(zb).to(device))
-            got = K.fused_quantize_lanes(*fargs, z_scale=z_scale)
-            want = K.fused_quantize_lanes_plain(*fargs, z_scale=z_scale)
-            torch.cuda.synchronize()
-            d = (got["idx"].int() - want["idx"].int()).abs()
-            n_diff = int((d > 0).sum())
-            max_bin = int(d.max())
-            vmin_ok = bool(torch.equal(got["vmin"], want["vmin"]))
-            nan_ok = bool(torch.equal(got["col_all_nan"], want["col_all_nan"]))
-            # Every cell one bin apart must sit on a provable bin boundary
-            # (the two float32 log10s, log10f and torch's, may round apart there).
-            n_boundary = 0
-            for j in torch.nonzero((d > 0).any(dim=2).any(dim=1)).flatten().tolist():
-                n_boundary += int(boundary_mask(collapsed[j].cpu().numpy(), float(want["vmin"][j]),
-                                                float(zb[j, 1]), z_scale, (d[j] > 0).cpu().numpy()).sum())
-            ms = cuda_time_ms(lambda: K.fused_quantize_lanes(*fargs, z_scale=z_scale))
-            plain_ms = cuda_time_ms(lambda: K.fused_quantize_lanes_plain(*fargs, z_scale=z_scale), reps=10)
-            moved = read + 8 * T * E * (4 + 4 + 1)  # + scratch write and re-read, uint8 out
-            # Least bytes: the cube once (a lane selects every pitch bin), the uint8 indices once.
-            bound_ms, bound_by = bound(T * A * E * 4 + 8 * T * E)
-            say("kernel", name="fused_quantize", z=z_scale, shape=f"{T}x{A}x{E}", lanes=8,
-                cells_off_by_one=n_diff, of_them_on_a_bin_boundary=n_boundary, max_bin_diff=max_bin,
-                vmin_exact=vmin_ok, col_all_nan_exact=nan_ok, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-                library_ms=None, bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, bound_share=f"{bound_ms / ms:.3f}",
-                read_GBps=f"{(read + 8 * T * E * 4) / ms / 1e6:.1f}",
-                hbm_share=f"{moved / (ms * 1e-3) / H100_BYTES_PER_S:.3f}")
-            require(max_bin <= 1 and n_boundary == n_diff and vmin_ok and nan_ok,
-                    f"fused kernel outside its contract at {T}x{A}x{E} z={z_scale}")
-            if si == 0 and z_scale == "log":
-                records["fused_quantize"] = {"max_abs_err": float(max_bin), "ms": ms, "plain_ms": plain_ms,
-                                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-        del x, args, collapsed
+            fused_phases(K, bucket, z_scale)
+        del x, layouts, bucket
     check_collapse_layouts(K, device)
     return records
 

@@ -12,8 +12,10 @@ Counterparts of ``configurable_spectrograms_tpu/ops/pallas_kernels.py``:
   index order, so it is bit-identical to :func:`collapse_lanes_plain`.
 * :func:`fused_quantize_lanes` replaces ``fused_quantize_pallas``
   (``_fused_quantize_kernel``): collapse + explicit-bounds colormap index
-  in two launches (see ``csrc/fused_quantize.cu``).  It carries the
-  given-extrema render buckets.
+  in two launches (see ``csrc/fused_quantize.cu``).  The first runs the
+  same grouped collapse as :func:`collapse_lanes` and folds one minimum per
+  lane and ``col_any`` per (lane, column); the second quantizes.  It
+  carries the given-extrema render buckets.
 * :func:`stft_power` replaces ``stft_power_pallas`` (``_stft_power_kernel``):
   the windowed-DFT power spectrogram of ``ops/stft.py``'s ``"pallas"``
   method, read straight from the framed signal, with the products on the
@@ -35,15 +37,12 @@ int32 picks each lane's cube, ``masks`` (L, A) bool its pitch bins,
 
 from __future__ import annotations
 
-import struct
-
 import torch
 
 #: Launch counts of the CUDA kernels (one per wrapper call that launched).
 LAUNCHES: dict[str, int] = {"collapse": 0, "fused_quantize": 0, "stft_power": 0}
 
 _BIG = 3.0e38  # the "no finite positive value" sentinel of both JAX paths
-_BIG_BITS = struct.unpack("<i", struct.pack("<f", _BIG))[0]
 
 
 def reset_launches() -> None:
@@ -51,19 +50,20 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-#: Lanes the collapse kernel serves from one read of their cube (``CST_GROUP``
-#: in ``csrc/collapse.cu``).
+#: Lanes the collapse kernels serve from one read of their cube (``CST_GROUP``
+#: in ``csrc/collapse_common.cuh``).
 COLLAPSE_GROUP = 8
 
 
 def lane_groups(u_idx, group: int = COLLAPSE_GROUP) -> list[list[int]]:
-    """The collapse kernel's lane groups: lists of lane indices, one cube each.
+    """The collapse kernels' lane groups: lists of lane indices, one cube each.
 
     The lanes of each cube in index order, cut into runs of at most
-    *group*; groups are listed by their first lane.  The kernel finds the
-    same groups itself from ``u_idx`` (``csrc/collapse.cu``), so the
-    wrapper launches once with no host work; this states the rule, and
-    gives the bytes a launch reads (one pass over each group's cube).
+    *group*; groups are listed by their first lane.  The kernels (collapse
+    and fused) find the same groups themselves from ``u_idx``
+    (``csrc/collapse_common.cuh``), so a wrapper launches once with no host
+    work; this states the rule, and gives the bytes a launch reads (one
+    pass over each group's cube).
     """
     runs: dict[int, list[list[int]]] = {}
     out = []
@@ -268,26 +268,55 @@ def fused_quantize_lanes(cubes, u_idx, masks, e_valid, t_valid, t_start, t_count
                                           t_count, z_bounds, z_scale)
     if cubes.device.type != "cuda":
         raise ValueError(f"fused_quantize_lanes runs on cpu or cuda tensors, got {cubes.device}")
+    work, out = fused_buffers(L, T, E, cubes.device)
+    if L == 0:
+        return out
+    fused_launch((cubes, u_idx, masks, e_valid, t_valid, t_start, t_count, z_bounds), z_scale, work, out,
+                 FUSED_BOTH)
+    LAUNCHES["fused_quantize"] += 1
+    return out
+
+
+#: ``phases`` of ``cst_fused_quantize``: launch 1 (collapse + statistics), launch 2 (quantize), both.
+FUSED_STATS, FUSED_MAP, FUSED_BOTH = 1, 2, 3
+
+
+def fused_buffers(L: int, T: int, E: int, device) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The fused kernel's scratch and outputs: four allocations and no fills.
+
+    ``work`` (float32) holds the collapsed (L, T, E) matrices, then
+    ``col_any`` (L, E) and the lane minima (L,) as int32 bits, which the
+    kernel clears itself.  The outputs: ``idx`` (L, T, E) uint8, ``vmin``
+    (L,) float32, ``col_all_nan`` (L, E) bool.
+    """
+    work = torch.empty((L * (T * E + E + 1),), dtype=torch.float32, device=device)
+    out = {
+        "idx": torch.empty((L, T, E), dtype=torch.uint8, device=device),
+        "vmin": torch.empty((L,), dtype=torch.float32, device=device),
+        "col_all_nan": torch.empty((L, E), dtype=torch.bool, device=device),
+    }
+    return work, out
+
+
+def fused_launch(args: tuple, z_scale: str, work: torch.Tensor, out: dict[str, torch.Tensor],
+                 phases: int) -> None:
+    """Run ``cst_fused_quantize`` on the checked inputs into :func:`fused_buffers`' tensors (made on their device).
+
+    Counts no launch: :func:`fused_quantize_lanes` does, and a caller
+    timing the two launches apart passes ``phases`` 1 or 2.
+    """
     from configurable_spectrograms_torch.ops._build import load_library
 
-    lib = load_library()
-    dev = cubes.device
-    collapsed = torch.empty((L, T, E), dtype=torch.float32, device=dev)
-    col_any = torch.zeros((L, E), dtype=torch.int32, device=dev)
-    col_min = torch.full((L, E), _BIG_BITS, dtype=torch.int32, device=dev)
-    idx = torch.empty((L, T, E), dtype=torch.uint8, device=dev)
-    vmin = torch.empty((L,), dtype=torch.float32, device=dev)
-    col_all_nan = torch.empty((L, E), dtype=torch.bool, device=dev)
-    if L == 0:
-        return {"idx": idx, "vmin": vmin, "col_all_nan": col_all_nan}
-    ptrs = _cuda_args(cubes, u_idx, masks, e_valid, t_valid, t_start, t_count, z_bounds)
-    outs = _cuda_args(collapsed, col_any, col_min, idx, vmin, col_all_nan)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.cst_fused_quantize(*ptrs, 1 if z_scale == "log" else 0, *outs, L, T, A, E, stream)
+    cubes = args[0]
+    _, T, A, E = cubes.shape
+    L = args[1].shape[0]
+    lte, le = L * T * E, L * E
+    base = work.data_ptr()  # collapsed, then col_any, then the lane minima
+    err = load_library().cst_fused_quantize(
+        *_cuda_args(*args), 1 if z_scale == "log" else 0, base, base + 4 * lte, base + 4 * (lte + le),
+        out["idx"].data_ptr(), out["vmin"].data_ptr(), out["col_all_nan"].data_ptr(), L, T, A, E, phases,
+        torch.cuda.current_stream(cubes.device).cuda_stream)
     _raise_on(err, "cst_fused_quantize")
-    LAUNCHES["fused_quantize"] += 1
-    return {"idx": idx, "vmin": vmin, "col_all_nan": col_all_nan}
-
 
 
 def stft_power(frames: torch.Tensor, cos_b: torch.Tensor, sin_b: torch.Tensor) -> torch.Tensor:

@@ -134,8 +134,18 @@ def _assert_fused_contract(got: dict, want: dict, cube, mask, t_valid, z_scale, 
 
 
 @pytest.mark.parametrize("z_scale", ["log", "linear"])
-@pytest.mark.parametrize("A,window", [(16, (0, 256)), (32, (60, 120))])
-def test_plain_fused_matches_pallas_interpreter(z_scale, A, window):
+@pytest.mark.parametrize(
+    "A,window,bounds",
+    [
+        pytest.param(16, (0, 256), "given", id="16-window0"),
+        pytest.param(32, (60, 120), "given", id="32-window1"),
+        # A window past the file rows: no finite positive cell, so log z takes the 1e-10 floor.
+        pytest.param(16, (240, 16), "no_positive", id="16-no_positive"),
+        # vmax at the window's least positive cell: the safe floor raises vmin to vmax.
+        pytest.param(16, (0, 256), "floor_at_vmax", id="16-floor_at_vmax"),
+    ],
+)
+def test_plain_fused_matches_pallas_interpreter(z_scale, A, window, bounds):
     from configurable_spectrograms_tpu.ops.pallas_kernels import fused_quantize_pallas
 
     T, E, t_valid = 256, 128, 230
@@ -144,8 +154,16 @@ def test_plain_fused_matches_pallas_interpreter(z_scale, A, window):
     cube[5, 0, 7] = np.inf
     cube[6, 0, 9] = -np.inf
     e_valid = np.random.default_rng(A).random(E) < 0.9
-    zb = np.array([2.0, 5000.0], np.float32)
     t_start, t_count = window
+    zb = np.array([2.0, 5000.0], np.float32)
+    if bounds == "no_positive":
+        zb[0] = 1e-12
+    elif bounds == "floor_at_vmax":
+        m = K.collapse_lanes_plain(*_lanes(cube, [mask], [t_valid]))[0].numpy()
+        rows = np.arange(T)[:, None]
+        fp = np.isfinite(m) & (m > 0) & (rows >= t_start) & (rows < t_start + t_count) & e_valid[None, :]
+        minpos = m[fp].min()
+        zb[:] = (minpos / 4, minpos)
     ref = fused_quantize_pallas(jnp.asarray(cube), jnp.asarray(mask), jnp.asarray(e_valid), t_valid,
                                 t_start, t_count, jnp.asarray(zb), z_scale=z_scale)
     out = K.fused_quantize_lanes(
@@ -157,22 +175,38 @@ def test_plain_fused_matches_pallas_interpreter(z_scale, A, window):
     got = {"idx": out["idx"][0].numpy(), "vmin": out["vmin"][0].item(), "col_all_nan": out["col_all_nan"][0].numpy()}
     want = {k: np.asarray(v) for k, v in ref.items()}
     _assert_fused_contract(got, want, cube, mask, t_valid, z_scale, zb)
+    if z_scale == "log" and bounds == "no_positive":
+        assert got["vmin"] == np.float32(1e-10)
+    if z_scale == "log" and bounds == "floor_at_vmax":
+        assert got["vmin"] == zb[1] and not got["idx"].any()
 
 
-def test_fused_lanes_are_independent():
-    """Lanes of one launch share a cube but keep their own mask, window and bounds."""
-    cube, mask = _cube(11, 64, 16, 24)
-    cube = np.abs(cube)
-    L = 3
-    args = dict(
-        cubes=torch.from_numpy(cube[None]), u_idx=torch.zeros((L,), dtype=torch.int32),
-        masks=torch.from_numpy(np.stack([mask, ~mask, np.ones(16, bool)])),
-        e_valid=torch.ones((L, 24), dtype=torch.bool), t_valid=torch.tensor([64, 50, 64], dtype=torch.int32),
-        t_start=torch.tensor([0, 10, 5], dtype=torch.int32), t_count=torch.tensor([64, 20, 30], dtype=torch.int32),
-        z_bounds=torch.tensor([[1.0, 900.0], [3.0, 40.0], [0.5, 2000.0]]),
+def _fused_layout(u_idx: list[int], seed: int, T: int = 64, A: int = 16, E: int = 24) -> dict:
+    """fused_quantize_lanes arguments: lanes on two cubes by *u_idx*, each with its own mask, window and bounds."""
+    rng = np.random.default_rng(seed)
+    cube, mask = _cube(seed, T, A, E)
+    cubes = np.abs(np.stack([cube, cube[::-1] * np.float32(1.5)]))
+    L = len(u_idx)
+    masks = np.stack([[mask, ~mask, np.ones(A, bool)][j % 3] for j in range(L)])
+    t_valid = rng.integers(T // 2, T + 1, L).astype(np.int32)
+    t_start = rng.integers(0, T // 2, L).astype(np.int32)
+    t_count = rng.integers(0, T // 2, L).astype(np.int32)
+    lo = rng.uniform(0.5, 5.0, L).astype(np.float32)
+    return dict(
+        cubes=torch.from_numpy(cubes), u_idx=torch.tensor(u_idx, dtype=torch.int32), masks=torch.from_numpy(masks),
+        e_valid=torch.from_numpy(rng.random((L, E)) < 0.8), t_valid=torch.from_numpy(t_valid),
+        t_start=torch.from_numpy(t_start), t_count=torch.from_numpy(t_count),
+        z_bounds=torch.from_numpy(np.stack([lo, lo * 300.0], axis=1)),
     )
+
+
+@pytest.mark.parametrize("u_idx", [[0] * 3, [0, 1, 0, 1, 1, 0, 1, 0], [0] * 11],
+                         ids=["3_lanes", "two_cubes_interleaved", "11_lanes"])
+def test_fused_lanes_are_independent(u_idx):
+    """Lanes of one launch share cubes but keep their own mask, window and bounds."""
+    args = _fused_layout(u_idx, seed=11)
     both = K.fused_quantize_lanes(**args)
-    for j in range(L):
+    for j in range(len(u_idx)):
         one = K.fused_quantize_lanes(**{k: (v[j: j + 1] if k != "cubes" else v) for k, v in args.items()})
         assert torch.equal(both["idx"][j], one["idx"][0])
         assert torch.equal(both["vmin"][j], one["vmin"][0])
@@ -245,7 +279,7 @@ def test_lane_groups_cover_every_lane_once_by_cube(u_idx):
 def test_lane_groups_take_the_kernels_group_size():
     assert K.lane_groups(torch.zeros(20, dtype=torch.int32), 4) == [[0, 1, 2, 3], [4, 5, 6, 7], [8, 9, 10, 11],
                                                                     [12, 13, 14, 15], [16, 17, 18, 19]]
-    assert K.COLLAPSE_GROUP == 8  # CST_GROUP in csrc/collapse.cu: one byte of lane bits a pitch bin
+    assert K.COLLAPSE_GROUP == 8  # CST_GROUP in csrc/collapse_common.cuh: one byte of lane bits a pitch bin
 
 
 @pytest.mark.cuda
@@ -288,6 +322,36 @@ def test_cuda_kernels_match_plain_versions():
         assert torch.equal(got["vmin"], want["vmin"])
         assert torch.equal(got["col_all_nan"], want["col_all_nan"])
         assert int((got["idx"].int() - want["idx"].int()).abs().max()) <= 1
+
+
+@pytest.mark.cuda
+def test_cuda_fused_layouts_match_the_plain_version():
+    """On a card: the fused kernel's lane layouts, each lane held to the contract of the plain version.
+
+    Two cubes with interleaved lanes, 11 lanes on one cube (two groups),
+    E = 50 (the 4-byte path), a lane with an empty window and a lane with no
+    file rows (all NaN), in both z scales.
+    """
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for u_idx, E in (([0, 1, 0, 1, 1, 0, 1, 0], 48), ([0] * 11, 48), ([0, 1, 0, 1, 1, 0, 1, 0], 50), ([0] * 11, 50)):
+        args = _fused_layout(u_idx, seed=12, T=200, A=32, E=E)
+        args["t_count"][1] = 0
+        args["t_valid"][2] = 0
+        args = {k: v.cuda() for k, v in args.items()}
+        cubes = args["cubes"].cpu().numpy()
+        for z in ("log", "linear"):
+            got = K.fused_quantize_lanes(**args, z_scale=z)
+            want = K.fused_quantize_lanes_plain(**args, z_scale=z)
+            assert bool(want["col_all_nan"][2].all())
+            for j, u in enumerate(u_idx):
+                _assert_fused_contract(
+                    {"idx": got["idx"][j].cpu().numpy(), "vmin": got["vmin"][j].item(),
+                     "col_all_nan": got["col_all_nan"][j].cpu().numpy()},
+                    {"idx": want["idx"][j].cpu().numpy(), "vmin": want["vmin"][j].item(),
+                     "col_all_nan": want["col_all_nan"][j].cpu().numpy()},
+                    cubes[u], args["masks"][j].cpu().numpy(), int(args["t_valid"][j]), z,
+                    args["z_bounds"][j].cpu().numpy())
 
 
 def test_get_device_honours_the_env_and_never_falls_back(monkeypatch):
