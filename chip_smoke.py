@@ -7,7 +7,8 @@
 Phases, one line each, in order:
 
 1. device   -- the card's name and power limit (nvidia-smi), which of PIL,
-               pandas and matplotlib import; requires torch.cuda.is_available().
+               pandas, matplotlib and tqdm import; requires
+               torch.cuda.is_available().
 2. build    -- compiles ``configurable_spectrograms_torch/csrc/*.cu`` with nvcc,
                one process per source, all started together.
 3. kernel   -- each kernel against its plain PyTorch version on the card:
@@ -43,6 +44,22 @@ Phases, one line each, in order:
 5. generic  -- the single-CDF CLI on the 8192x64x128 file and
                generic_batch_plot over the archive's 16 files, on the device
                backend: exit 0 and one PNG per item.
+   batch    -- the flagless flagship CLI
+               (``cli.batch_multi_plot_FAST_spectrograms.main()``, its
+               defaults: 4 scale combos orbit-major, a 99th-percentile
+               extrema pre-pass, 4 worker threads, existing plots skipped)
+               in a working directory holding ./FAST_data (the archive) and
+               ./FAST_Cusp_Indices.csv, on the device backend: every result
+               ok, 4 orbits x 4 combos x 10 = 160 PNGs, the 4 progress
+               cursors with no error or timeout, the extrema JSON, both
+               kernels launched.  Run again, it must add, rewrite and launch
+               nothing (resume).  Then on the host backend in a second
+               tree: the same file list, the same extrema JSON, every
+               raw-named PNG identical or differing only in pixels one
+               colormap bin apart.  Then the single FAST CLI on the device
+               backend: --cdf-file (the 8192x64x128 ees file), --data-folder
+               with --orbit, and --instrument-file for all four instruments
+               (--date needs the network and is not run).
 6. audio    -- the same 600 s of audio as a 16-bit WAV (a 50 Hz - 15 kHz
                chirp, two tones, noise at -30 dB) through
                ``python -m configurable_spectrograms_torch.cli.audio``'s main on
@@ -655,8 +672,9 @@ def run_e2e(records: dict, small=SHAPES[1], big=SHAPES[0]) -> None:
         for backend, secs_b in render_s.items():
             say("e2e", backend=backend, orbits=len(mapping), panels=n_panels,
                 panels_per_s=f"{n_panels / secs_b:.2f}", note="process_orbit incl. decode, composite, PNG")
-        if have_pil:
-            run_generic(records, mapping, tmp)
+        require(have_pil, "PIL does not import: the batch phase writes PNGs")
+        run_generic(records, mapping, tmp)
+        run_batch(records, mapping, root, os.path.join(tmp, "cusp.tsv"), tmp)
         os.environ.pop("CST_RENDER_BACKEND", None)
 
 
@@ -822,6 +840,198 @@ def run_generic(records: dict, mapping: dict, tmp: str) -> None:
     add_launches(records, launches)
 
 
+PANELS_PER_FIGURE = 8  # a pitch grid: 4 categories x full/zoom; an instrument grid: 4 instruments x full/zoom
+
+
+def batch_cwd(path: str, root: str, cusp: str) -> str:
+    """A working directory laid out as the flagless flagship CLI reads it: ./FAST_data and ./FAST_Cusp_Indices.csv."""
+    import shutil
+
+    os.makedirs(path)
+    os.symlink(root, os.path.join(path, "FAST_data"))
+    shutil.copy(cusp, os.path.join(path, "FAST_Cusp_Indices.csv"))
+    return path
+
+
+def run_flagship(cwd: str, backend: str) -> dict:
+    """The port's flagless flagship CLI (``main()``, its defaults) in *cwd* on *backend*; what it ran and wrote."""
+    import signal
+
+    import torch
+
+    from configurable_spectrograms_torch.cli import batch_multi_plot_FAST_spectrograms as flagship
+    from configurable_spectrograms_torch.data import cdf_utils
+    from configurable_spectrograms_torch.fast import batch_directory
+    from configurable_spectrograms_torch.utils.config import FastBatchConfig
+    from configurable_spectrograms_torch.utils.logging import flush_log_buffer, set_logfile_path
+
+    results, extrema_s = [], []
+
+    class Recorded(FastBatchConfig):  # main() drops the driver's results; keep them
+        def run(self):
+            results.extend(super().run())
+            return results
+
+    def timed_extrema(*a, **k):
+        t = time.perf_counter()
+        try:
+            return real_extrema(*a, **k)
+        finally:
+            extrema_s.append(time.perf_counter() - t)
+
+    real_extrema = batch_directory.compute_global_extrema
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT, signal.SIGTERM)}
+    os.environ["CST_RENDER_BACKEND"] = backend
+    os.environ.pop("CST_BATCH_SCHEDULE", None)
+    cdf_utils.clear_dataset_cache()  # each run decodes the archive itself
+    cdf_utils.filtered_orbits_cache.clear()  # keyed by the cwd-relative default path
+    here = os.getcwd()
+    os.chdir(cwd)
+    flagship.FastBatchConfig, batch_directory.compute_global_extrema = Recorded, timed_extrema
+    try:
+        t0 = time.perf_counter()
+        rc = call_main(flagship.main, [])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        flagship.FastBatchConfig, batch_directory.compute_global_extrema = FastBatchConfig, real_extrema
+        flush_log_buffer()
+        set_logfile_path(None)
+        os.chdir(here)
+        for s, h in handlers.items():  # the driver installs its interrupt escalation
+            signal.signal(s, h)
+    pngs = {os.path.relpath(p, cwd): os.stat(p).st_mtime_ns
+            for p in glob.glob(os.path.join(cwd, "FAST_plots", "**", "*.png"), recursive=True)}
+    with open(os.path.join(cwd, "batch_multi_plot_FAST_progress.json")) as f:
+        progress = json.load(f)
+    extrema_path = os.path.join(cwd, "FAST_calculated_extrema.json")
+    extrema = None
+    if os.path.exists(extrema_path):
+        with open(extrema_path) as f:
+            extrema = json.load(f)
+    return {"rc": rc, "seconds": seconds, "extrema_s": sum(extrema_s), "results": results, "pngs": pngs,
+            "progress": progress, "extrema": extrema}
+
+
+def png_bins_apart(a_path: str, b_path: str, colormap: str) -> int:
+    """Pixels that differ between two PNGs; fails unless each such pair is two adjacent colormap entries.
+
+    The rule of tests/test_torch_slice.py:42-69: a cell on a bin boundary
+    may land one bin apart between the backends (two float32 ``log10``s);
+    it shows as data-tile pixels whose colours are neighbouring entries of
+    the colormap.  Every other pixel must match.
+    """
+    from PIL import Image
+
+    from configurable_spectrograms_torch.ops._colormap_data import colormap_lut
+
+    a = np.asarray(Image.open(a_path).convert("RGB")).astype(np.int64)
+    b = np.asarray(Image.open(b_path).convert("RGB")).astype(np.int64)
+    require(a.shape == b.shape, f"{a_path}: shape {a.shape} vs {b.shape}")
+    diff = (a != b).any(axis=-1)
+    if not diff.any():
+        return 0
+    lut = colormap_lut(colormap)[:, :3].astype(np.int64)
+    code = {int(c): i for i, c in enumerate(lut[:, 0] << 16 | lut[:, 1] << 8 | lut[:, 2])}
+    ia = [code.get(int(c), -9) for c in (a[diff][:, 0] << 16 | a[diff][:, 1] << 8 | a[diff][:, 2])]
+    ib = [code.get(int(c), -99) for c in (b[diff][:, 0] << 16 | b[diff][:, 1] << 8 | b[diff][:, 2])]
+    require(all(abs(x - y) == 1 for x, y in zip(ia, ib)), f"{a_path}: pixels differ by more than one colormap bin")
+    return int(diff.sum())
+
+
+def run_batch(records: dict, mapping: dict, root: str, cusp: str, tmp: str) -> None:
+    """The flagless flagship batch CLI over the archive (device, resume, host), then the single FAST CLI."""
+    import torch
+
+    from configurable_spectrograms_torch.cli import single_plot_FAST_spectrograms as cli_fast
+    from configurable_spectrograms_torch.ops import kernels as K
+
+    n_orbits = len(mapping)
+    want_pngs = n_orbits * 4 * 10  # orbits x 4 combos x (4 instruments x given/raw pitch grids + 2 grids)
+    runs = {}
+    for backend in ("device", "host"):
+        cwd = batch_cwd(os.path.join(tmp, f"batch_{backend}"), root, cusp)
+        K.reset_launches()
+        run = runs[backend] = run_flagship(cwd, backend)
+        launches = dict(K.LAUNCHES)
+        progress = run["progress"]
+        cursors = sorted(k for k in progress if k.endswith("_last_orbit"))
+        flagged = {k: v for k, v in progress.items() if ("error" in k or "timed_out" in k) and v}
+        panels = PANELS_PER_FIGURE * len(run["pngs"])
+        say("batch", backend=backend, archive_s=f"{run['seconds']:.2f}", pngs=len(run["pngs"]),
+            panels_per_s=f"{panels / run['seconds']:.2f}",
+            render_panels_per_s=f"{panels / (run['seconds'] - run['extrema_s']):.2f}",
+            extrema_s=f"{run['extrema_s']:.2f}", results=len(run["results"]),
+            launches=json.dumps(launches), cursors=",".join(cursors), progress_keys=len(progress))
+        require(run["rc"] == 0, f"flagship CLI ({backend}) exited {run['rc']}")
+        require(len(run["results"]) == n_orbits * 4 * 2 and all(r["status"] == "ok" for r in run["results"]),
+                f"flagship CLI ({backend}): not every result ok: {[r for r in run['results'] if r['status'] != 'ok']}")
+        require(len(run["pngs"]) == want_pngs, f"flagship CLI ({backend}) wrote {len(run['pngs'])} PNGs, not {want_pngs}")
+        require(cursors == ["linear_linear_last_orbit", "linear_log_last_orbit", "log_linear_last_orbit",
+                            "log_log_last_orbit"], f"progress cursors: {cursors}")
+        require(not flagged, f"flagship CLI ({backend}) recorded errors or timeouts: {flagged}")
+        require(run["extrema"] is not None, f"flagship CLI ({backend}) wrote no extrema JSON")
+        if backend == "device":
+            require(min(launches["collapse"], launches["fused_quantize"]) > 0,
+                    f"the flagship batch did not launch both kernels: {launches}")
+            add_launches(records, launches)
+            # Resume: the same command again adds and rewrites nothing and launches nothing.
+            K.reset_launches()
+            again = run_flagship(cwd, backend)
+            say("batch", step="resume", resume_s=f"{again['seconds']:.2f}", pngs=len(again["pngs"]),
+                results=len(again["results"]), launches=json.dumps(K.LAUNCHES))
+            require(again["rc"] == 0 and again["pngs"] == run["pngs"], "the resumed batch added or rewrote PNGs")
+            require(sum(K.LAUNCHES.values()) == 0, f"the resumed batch launched kernels: {K.LAUNCHES}")
+
+    dev, host = runs["device"], runs["host"]
+    require(sorted(dev["pngs"]) == sorted(host["pngs"]), "device and host batches wrote different file lists")
+    require(dev["extrema"] == host["extrema"], "extrema JSON differs between the device and host batches")
+    raw = sorted(p for p in dev["pngs"] if "_raw-" in p)
+    apart = same = 0
+    for rel in raw:
+        n = png_bins_apart(os.path.join(tmp, "batch_device", rel), os.path.join(tmp, "batch_host", rel),
+                           rel.rsplit("-", 1)[1][: -len(".png")])
+        apart += n
+        same += n == 0
+    say("batch", compare="device vs host", files=len(dev["pngs"]), extrema_json="identical", raw_pngs=len(raw),
+        raw_byte_or_pixel_identical=same, pixels_one_bin_apart=apart,
+        device_archive_s=f"{dev['seconds']:.2f}", host_archive_s=f"{host['seconds']:.2f}",
+        device_panels_per_s=f"{PANELS_PER_FIGURE * len(dev['pngs']) / dev['seconds']:.2f}",
+        host_panels_per_s=f"{PANELS_PER_FIGURE * len(host['pngs']) / host['seconds']:.2f}")
+
+    # The single-figure FAST CLI on the device backend, from the device batch's working directory.
+    big = max(mapping)
+    os.environ["CST_RENDER_BACKEND"] = "device"
+    here = os.getcwd()
+    os.chdir(os.path.join(tmp, "batch_device"))
+    K.reset_launches()
+    secs = {}
+    try:
+        for mode, argv in (
+            ("cdf-file", ["--cdf-file", mapping[big]["ees"]]),
+            ("data-folder", ["--data-folder", root, "--orbit", str(big)]),
+            ("instrument-file", [a for inst in ("ees", "eeb", "ies", "ieb")
+                                 for a in ("--instrument-file", f"{inst}={mapping[big][inst]}")]),
+        ):
+            out = os.path.join(tmp, f"single_fast_{mode}.png")
+            t0 = time.perf_counter()
+            rc = call_main(cli_fast.main, [*argv, "--output", out, "--y-scale", "log", "--z-scale", "log",
+                                           "--colormap", "inferno"])
+            torch.cuda.synchronize()
+            secs[mode] = time.perf_counter() - t0
+            require(rc == 0 and os.path.exists(out), f"single FAST CLI {mode} exited {rc}")
+    finally:
+        os.chdir(here)
+    launches = dict(K.LAUNCHES)
+    say("batch", cli="single_plot_FAST_spectrograms", orbit=big, **{f"{m}_s": f"{s:.2f}" for m, s in secs.items()},
+        launches=json.dumps(launches))
+    say("batch", cli="single_plot_FAST_spectrograms", mode="date", run="no",
+        why="--date downloads from CDA Web; the card's machine has no network")
+    require(launches["collapse"] > 0, f"the single FAST CLI launched no collapse kernel: {launches}")
+    add_launches(records, launches)
+    os.environ.pop("CST_RENDER_BACKEND", None)
+
+
 def write_wav(path: str, samples: np.ndarray, rate: int) -> None:
     import wave
 
@@ -946,7 +1156,7 @@ def main() -> int:
     device = get_device()
     smi = nvidia_smi_line()
     libs = {}
-    for mod in ("PIL", "pandas", "matplotlib"):
+    for mod in ("PIL", "pandas", "matplotlib", "tqdm"):
         try:
             __import__(mod)
             libs[mod] = "yes"

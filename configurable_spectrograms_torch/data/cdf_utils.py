@@ -1,18 +1,21 @@
 """CDF file metadata, cusp-CSV lookup, and FAST dataset loading.
 
 A copy of the JAX package's ``data/cdf_utils.py`` (file-type detection,
-orbit-boundary lookup, and the cached dataset decode), minus the variable
-shape survey.  ``pandas`` is imported only where the cusp CSV is read.
+orbit-boundary lookup, the variable shape survey and the cached dataset
+decode).  ``pandas`` is imported only where the cusp CSV is read, and
+``tqdm`` only where the survey draws its optional progress bar.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+from pathlib import Path
 
 import numpy as np
 
 from configurable_spectrograms_torch.constants import (
+    CDF_DATA_DIRECTORY,
     CDF_VARIABLE_NAMES,
     FILTERED_ORBITS_CSV_PATH,
 )
@@ -257,6 +260,39 @@ def get_cdf_file_type(cdf_file_path: str) -> str | None:
     if tag is None:
         log_error(f"Unknown CDF file type for path: {cdf_file_path}")
     return tag
+
+
+def get_variable_shape(cdf_path: str, variable_name: str) -> tuple[int, ...] | None:
+    """Shape of one variable in one CDF (``None`` for orb files or errors)."""
+    if cdf_path not in cdf_type_cache:
+        cdf_type_cache[cdf_path] = get_cdf_file_type(cdf_path)
+    if cdf_type_cache[cdf_path] in (None, "orb"):
+        return None
+    try:
+        with CDF(cdf_path) as cdf:
+            data = cdf.varget(variable_name)
+    except Exception as exc:
+        log_error(f"Error reading {cdf_path} for variable {variable_name}: {exc}")
+        return None
+    return data.shape if isinstance(data, np.ndarray) else None
+
+
+def get_cdf_var_shapes(
+    cdf_folder_path: str = CDF_DATA_DIRECTORY,
+    variable_names: list[str] = CDF_VARIABLE_NAMES,
+) -> dict[str, list[tuple[int, ...] | None]]:
+    """Survey variable shapes across every CDF under a folder."""
+    from configurable_spectrograms_torch.utils.progress import tqdm_or_none
+
+    tqdm = tqdm_or_none()
+    paths = [str(p) for p in Path(cdf_folder_path).rglob("*.[cC][dD][fF]")]
+
+    def walk(name: str) -> list[str]:
+        if tqdm is None:
+            return paths
+        return tqdm(paths, desc=f"Processing CDF files ({name})", unit="file", total=len(paths))
+
+    return {name: [get_variable_shape(p, name) for p in walk(name)] for name in variable_names}
 
 
 def load_fast_cdf_dataset(

@@ -1,6 +1,6 @@
-"""FAST orbit/instrument file discovery.
+"""FAST orbit/instrument file discovery and error-key helpers.
 
-Behavioral parity with reference fast/orbit_discovery.py:12-166.
+Behavioral parity with reference fast/orbit_discovery.py:12-250.
 """
 
 from __future__ import annotations
@@ -12,6 +12,14 @@ from configurable_spectrograms_torch.data.cdf_utils import get_cdf_file_type
 from configurable_spectrograms_torch.utils.logging import log_exception
 
 DEFAULT_INSTRUMENT_ORDER = ("ees", "eeb", "ies", "ieb")
+
+#: Error-message substrings -> progress-key reason tokens, checked in order.
+_REASON_RULES = (
+    (("divide", "zero"), "divide-by-zero"),
+    (("invalid", "cdf"), "invalid-cdf"),
+    (("timeout",), "timeout"),
+    (("plot",), "plotting"),
+)
 
 
 def parse_year_month(file_path: str) -> tuple[str, str]:
@@ -30,6 +38,25 @@ def parse_year_month(file_path: str) -> tuple[str, str]:
             follower = parts[i + 1] if i + 1 < len(parts) else ""
             return part, follower if (len(follower) == 2 and follower.isdigit()) else "unknown"
     return "unknown", "unknown"
+
+
+def classify_error_reason(msg: str) -> str:
+    """Short reason token for an error message (progress-JSON taxonomy).
+
+    Examples
+    --------
+    >>> classify_error_reason("divide by zero encountered")
+    'divide-by-zero'
+    >>> classify_error_reason("Timeout while processing orbit")
+    'timeout'
+    >>> classify_error_reason("something else entirely")
+    'generic'
+    """
+    lowered = msg.lower()
+    for needles, token in _REASON_RULES:
+        if all(n in lowered for n in needles):
+            return token
+    return "generic"
 
 
 def extract_orbit_and_instrument(cdf_path: str) -> tuple[int, str, str] | None:
@@ -83,3 +110,48 @@ def discover_orbit_files(
         orbit, instrument, _ = parsed
         found.setdefault(orbit, {})[instrument] = path
     return found
+
+
+def resolve_shared_orbit(instrument_day_files: dict[str, list[str]]) -> tuple[int | None, dict[str, str]]:
+    """Reduce a day's downloads to the orbit covered by the most instruments.
+
+    Ties break toward the lowest orbit number; instruments without a file
+    for the winning orbit are omitted (reference fast/orbit_discovery.py:169-216).
+
+    Examples
+    --------
+    >>> resolve_shared_orbit({
+    ...     "eeb": ["fa_esa_l2_eeb_20000101001737_100_v02.cdf",
+    ...             "fa_esa_l2_eeb_20000101031737_101_v02.cdf"],
+    ...     "ies": ["fa_esa_l2_ies_20000101001738_100_v02.cdf"],
+    ... })
+    (100, {'eeb': 'fa_esa_l2_eeb_20000101001737_100_v02.cdf', 'ies': 'fa_esa_l2_ies_20000101001738_100_v02.cdf'})
+    >>> resolve_shared_orbit({"eeb": [], "ies": []})
+    (None, {})
+    """
+    per_orbit: dict[int, dict[str, str]] = {}
+    for paths in instrument_day_files.values():
+        for path in paths:
+            parsed = extract_orbit_and_instrument(path)
+            if parsed is not None:
+                per_orbit.setdefault(parsed[0], {})[parsed[1]] = parsed[2]
+    if not per_orbit:
+        return None, {}
+    winner = max(per_orbit, key=lambda orbit: (len(per_orbit[orbit]), -orbit))
+    return winner, per_orbit[winner]
+
+
+def resolve_orbit_from_files(instrument_files: dict[str, str]) -> int | None:
+    """Best-effort orbit number from a caller-assembled instrument file map.
+
+    Examples
+    --------
+    >>> resolve_orbit_from_files({"eeb": "fa_esa_l2_eeb_20000101001737_13312_v02.cdf"})
+    13312
+    >>> resolve_orbit_from_files({"eeb": "not_a_fast_file.cdf"}) is None
+    True
+    """
+    return next(
+        (parsed[0] for path in instrument_files.values() if (parsed := extract_orbit_and_instrument(path))),
+        None,
+    )

@@ -40,7 +40,7 @@ from configurable_spectrograms_torch.ops.exact_percentile import ExactPercentile
 from configurable_spectrograms_torch.ops.extrema_ops import HIST_BINS, batched_file_stats, hist_percentile
 from configurable_spectrograms_torch.utils.logging import log_exception
 from configurable_spectrograms_torch.utils.percentiles import round_extrema
-from configurable_spectrograms_torch.utils.progress import atomic_write_json
+from configurable_spectrograms_torch.utils.progress import atomic_write_json, tqdm_or_none
 
 
 def extrema_overrides(
@@ -223,13 +223,9 @@ def compute_global_extrema(
         return regather
 
     pending_indexed = [(i, o) for i, o in enumerate(sorted_orbits) if o > last_orbit]
-    try:
-        from tqdm import tqdm
-
-        bar = tqdm(total=len(pending_indexed), desc=f"Extrema {y_scale}/{z_scale}", unit="orbit",
-                   leave=False, disable=(len(pending_indexed) == 0))
-    except Exception:
-        bar = None
+    tqdm = tqdm_or_none()
+    bar = None if tqdm is None else tqdm(total=len(pending_indexed), desc=f"Extrema {y_scale}/{z_scale}",
+                                         unit="orbit", leave=False, disable=(len(pending_indexed) == 0))
 
     # Orbits per device launch: two files' worth on the one device, capped
     # by the flush cadence so resume granularity is unchanged.

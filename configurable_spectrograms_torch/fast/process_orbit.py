@@ -37,6 +37,33 @@ from configurable_spectrograms_torch.fast.plotting import (
 from configurable_spectrograms_torch.render.plotting import close_all_axes_and_clear
 from configurable_spectrograms_torch.utils.logging import log_exception
 
+# The reference runs ``gc.collect()`` after every orbit (reference
+# fast/process_orbit.py:298) -- cheap there because each worker is a
+# short-lived process with a small heap.  This engine renders in one
+# long-lived process whose heap carries the resident caches, and the JAX
+# package measured per-orbit full (gen-2) passes at 23% of a cold batch.
+# Orbits therefore run a young-gen pass (frees the figure<->axes cycles
+# while they are still young) and a full pass at most once per interval;
+# ``CST_GC_FULL_INTERVAL_S=0`` restores the reference's every-orbit full
+# collection.
+_GC_FULL_INTERVAL_DEFAULT_S = 20.0
+try:
+    _GC_FULL_INTERVAL_S = float(
+        os.environ.get("CST_GC_FULL_INTERVAL_S", str(_GC_FULL_INTERVAL_DEFAULT_S)) or 0.0
+    )
+except ValueError:
+    _GC_FULL_INTERVAL_S = _GC_FULL_INTERVAL_DEFAULT_S
+_GC_LAST_FULL = [0.0]
+
+
+def _paced_gc() -> None:
+    now = time.monotonic()
+    if _GC_FULL_INTERVAL_S <= 0 or now - _GC_LAST_FULL[0] >= _GC_FULL_INTERVAL_S:
+        _GC_LAST_FULL[0] = now
+        gc.collect()
+    else:
+        gc.collect(1)
+
 
 def _copy_saved_png(src: str, dst: str) -> None:
     """Duplicate an already-encoded PNG to a second target path.
@@ -319,6 +346,6 @@ def FAST_process_single_orbit(
     except Exception as exc:
         run.note_error(f"[FAIL] Orbit {orbit_number} processing", exc)
     finally:
-        gc.collect()  # reference fast/process_orbit.py:298
+        _paced_gc()
 
     return run.finalize()

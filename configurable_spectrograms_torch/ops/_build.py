@@ -16,12 +16,12 @@ accurate libdevice function).
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -100,12 +100,23 @@ def build() -> Path:
     return lib
 
 
-@functools.lru_cache(maxsize=1)
+_LIBRARY: list[ctypes.CDLL] = []  # the loaded library, once built
+_LIBRARY_LOCK = threading.Lock()
+
+
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, with typed signatures."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    """Build (if needed) and load the kernel library, with typed signatures.
+
+    The batch driver's worker threads can reach their first kernel
+    together; the lock makes one of them build while the others wait, so
+    the sources are compiled once per process.
+    """
+    with _LIBRARY_LOCK:
+        if not _LIBRARY:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIBRARY.append(lib)
+        return _LIBRARY[0]

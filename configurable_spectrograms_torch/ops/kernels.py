@@ -37,17 +37,26 @@ int32 picks each lane's cube, ``masks`` (L, A) bool its pitch bins,
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 #: Launch counts of the CUDA kernels (one per wrapper call that launched).
 LAUNCHES: dict[str, int] = {"collapse": 0, "fused_quantize": 0, "stft_power": 0}
+_LAUNCHES_LOCK = threading.Lock()  # the batch driver launches from several threads
 
 _BIG = 3.0e38  # the "no finite positive value" sentinel of both JAX paths
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 #: Lanes the collapse kernels serve from one read of their cube (``CST_GROUP``
@@ -246,7 +255,7 @@ def collapse_lanes(cubes: torch.Tensor, u_idx: torch.Tensor, masks: torch.Tensor
     ptrs = _cuda_args(cubes, u_idx, masks, t_valid, out)
     stream = torch.cuda.current_stream(cubes.device).cuda_stream
     _raise_on(lib.cst_collapse(*ptrs, L, T, A, E, stream), "cst_collapse")
-    LAUNCHES["collapse"] += 1
+    _count_launch("collapse")
     return out
 
 
@@ -273,7 +282,7 @@ def fused_quantize_lanes(cubes, u_idx, masks, e_valid, t_valid, t_start, t_count
         return out
     fused_launch((cubes, u_idx, masks, e_valid, t_valid, t_start, t_count, z_bounds), z_scale, work, out,
                  FUSED_BOTH)
-    LAUNCHES["fused_quantize"] += 1
+    _count_launch("fused_quantize")
     return out
 
 
@@ -356,5 +365,5 @@ def stft_power(frames: torch.Tensor, cos_b: torch.Tensor, sin_b: torch.Tensor) -
     err = lib.cst_stft_power(frames.data_ptr(), frames.stride(0), F, L, bt.data_ptr(), K, bt.shape[1],
                              bt.shape[2], out.data_ptr(), stream)
     _raise_on(err, "cst_stft_power")
-    LAUNCHES["stft_power"] += 1
+    _count_launch("stft_power")
     return out

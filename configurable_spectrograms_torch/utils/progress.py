@@ -62,6 +62,19 @@ def atomic_write_json(path: str, payload: Any, *, indent: int = 2) -> None:
         raise
 
 
+def tqdm_or_none():
+    """The ``tqdm`` class, or ``None`` where the package is not installed.
+
+    Progress bars are optional: without ``tqdm`` the same work runs with
+    no bar (the card's machine need not carry it).
+    """
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return None
+    return tqdm
+
+
 def add_to_orbit_list(progress_dict: dict, key: str, orbit: int) -> None:
     """Add *orbit* to the sorted, deduplicated list at ``progress_dict[key]``.
 

@@ -4,8 +4,8 @@ One small synthetic orbit (A = 16) goes through the extrema pre-pass and
 ``FAST_process_single_orbit`` of both packages; the PNG files must be
 byte-identical on the host backend and agree within one colormap bin on
 the device backend.  The golden pitch grid must come out of the port pixel
-for pixel.  And the port must import and run the slice, the audio CLI and
-the generic batch with ``jax`` blocked.
+for pixel.  And the port must import and run the slice, the audio CLI,
+the generic batch and the flagship batch CLI with ``jax`` blocked.
 """
 
 import os
@@ -191,6 +191,21 @@ _BLOCKED_RUN = textwrap.dedent(
     assert dict(res) == {i: "ok" for i in insts}, res
     assert not any(k.split(".")[0] in ("jax", "jaxlib", "configurable_spectrograms_tpu") for k in sys.modules)
     print("GENERIC", sum(len(f) for _, _, f in os.walk(tmp + "/generic")))
+
+    # The flagless flagship CLI in a ./FAST_data + ./FAST_Cusp_Indices.csv working directory, one combo.
+    import functools, shutil
+    from configurable_spectrograms_torch.cli import batch_multi_plot_FAST_spectrograms as flagship
+    from configurable_spectrograms_torch.utils.config import FastBatchConfig, ScaleCombo
+    from configurable_spectrograms_torch.utils.logging import set_logfile_path
+
+    shutil.copytree(tmp + "/data", tmp + "/cwd/FAST_data")
+    shutil.copy(tmp + "/c.tsv", tmp + "/cwd/FAST_Cusp_Indices.csv")
+    os.chdir(tmp + "/cwd")
+    flagship.FastBatchConfig = functools.partial(FastBatchConfig, combos=(ScaleCombo("log", "log", "inferno"),))
+    flagship.main()
+    set_logfile_path(None)
+    assert not any(k.split(".")[0] in ("jax", "jaxlib", "configurable_spectrograms_tpu") for k in sys.modules)
+    print("FLAGSHIP", sum(len(f) for _, _, f in os.walk("FAST_plots")))
     """
 )
 
@@ -203,3 +218,4 @@ def test_port_imports_and_runs_the_slice_with_jax_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "PNGS 10" in proc.stdout
     assert "GENERIC 4" in proc.stdout
+    assert "FLAGSHIP 10" in proc.stdout  # 4 instruments x given/raw pitch grids + 2 instrument grids
