@@ -34,13 +34,30 @@ Phases, one line each, in order:
                warm-up (plain versions: 2 windows).  Each [kernel] line has
                bound_ms (the larger of bytes / 3.35 TB/s and, for stft_power,
                3 x 4FKL / 495 TFLOP/s), bound_share and library_ms.
+   font     -- the golden pitch grid (tests/goldens/fast_pitch_grid_200dpi.png,
+               the inputs of tests/test_golden_figures.py) on the host
+               backend: the font file must be a real one (the port's bundled
+               DejaVuSans.ttf) and the render may differ from the golden in
+               at most 2% of the canvas.
+   png      -- that 4800x2400 canvas through the native encoder (its
+               library, build variant, and whether text blends natively or
+               by Image.paste) and through PIL at compress_level=3: ms and
+               bytes of each; the two files must decode to the same pixels.
 4. e2e      -- a synthetic archive (3 orbits at 2048x32x48, 1 orbit at
                8192x64x128, 4 instruments): the extrema pre-pass and the
                log/log per-orbit render on the device, then again with
                CST_RENDER_BACKEND=host; every panel's bounds must agree bit
                for bit and its index cells exactly, or one bin apart on a
                provable bin boundary; both kernels must have launched during
-               the device run.
+               the device run.  Per orbit, a [breakdown] line: the first
+               device dispatch's seconds and its upload telemetry (h2d_bytes,
+               cube-cache hits and misses), then a second device render of
+               the same figures with its composite and PNG seconds (stage
+               timers) and telemetry, whose h2d_bytes must not exceed one
+               padded copy of each of the orbit's cubes
+               (render_minus_dispatch_s: the second render's seconds less
+               the first dispatch's, the composite figure of versions of
+               this script without stage timers).
 5. generic  -- the single-CDF CLI on the 8192x64x128 file and
                generic_batch_plot over the archive's 16 files, on the device
                backend: exit 0 and one PNG per item.
@@ -56,7 +73,12 @@ Phases, one line each, in order:
                nothing (resume).  Then on the host backend in a second
                tree: the same file list, the same extrema JSON, every
                raw-named PNG identical or differing only in pixels one
-               colormap bin apart.  Then the single FAST CLI on the device
+               colormap bin apart.  Then on the device backend again with
+               the render back end off (CST_RENDER_COALESCE=0,
+               CST_DEVICE_CUBE_CACHE=0, CST_HOST_COMPUTE_GATE=0): the same
+               file list and extrema JSON, its panels/s beside the default
+               run's.  Each batch line carries its upload telemetry; the
+               default run must reuse a resident cube.  Then the single FAST CLI on the device
                backend: --cdf-file (the 8192x64x128 ees file), --data-folder
                with --orbit, and --instrument-file for all four instruments
                (--date needs the network and is not run).
@@ -68,7 +90,18 @@ Phases, one line each, in order:
                stft_power tolerance of the numpy host STFT; the host-computed
                dataset (raw and mel) rendered on both backends with bounds bit
                for bit; stft_power and collapse launched in that phase;
-               stft / dispatch / composite / PNG seconds.
+               stft / dispatch / composite / PNG seconds; the second render
+               of the figure must ship 0 bytes (its padded cube resident).
+
+    python3 chip_smoke.py --backend-switches N
+
+builds the kernels, makes the e2e phase's archive and runs the flagship
+batch on the device backend N times in turn with the render back end on,
+with each of its switches off alone (CST_DEVICE_CUBE_CACHE=0,
+CST_RENDER_COALESCE=0, CST_HOST_COMPUTE_GATE=0) and with all three off
+(the order rotates each round): one [switches] line per run, the same
+file list and extrema JSON in every run, then the median panels/s of
+each setting.  It prints no ok line.
 
 Any failure raises (non-zero exit).  The last three lines are the card's
 nvidia-smi line, a JSON line with one record per kernel, and the result
@@ -431,6 +464,74 @@ def check_kernels(device) -> dict:
     return records
 
 
+GOLDEN_PITCH_GRID = "tests/goldens/fast_pitch_grid_200dpi.png"
+FONT_DIFF_LIMIT = 0.02  # share of the canvas; PIL's 10-px default font differed in 25.9%
+
+
+def run_font_and_png() -> None:
+    """[font]: the golden pitch grid on the host backend against its golden.  [png]: that canvas, native vs PIL.
+
+    The inputs are those of tests/test_golden_figures.py:54-80.  The render
+    must use a real font file (the port's bundled DejaVuSans.ttf) and differ
+    from the golden in at most FONT_DIFF_LIMIT of the canvas (what is left
+    is FreeType's version).  Then the 4800x2400 RGBA canvas is encoded by
+    the native encoder and by PIL at compress_level=3 (the port's encode
+    before the native one: ``convert("RGB")`` and ``save``); the two files
+    must decode to the same pixels.
+    """
+    from PIL import Image
+
+    from configurable_spectrograms_torch.data.cdf_utils import load_filtered_orbits
+    from configurable_spectrograms_torch.data.synthetic import synth_fast_archive
+    from configurable_spectrograms_torch.fast.plotting import FAST_plot_pitch_angle_grid
+    from configurable_spectrograms_torch.render import fastpng, text
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    font = text._font_path()
+    with tempfile.TemporaryDirectory(prefix="cst_chip_font_") as tmp:
+        mapping = synth_fast_archive(tmp, [4242], n_time=120, n_angle=12, n_energy=24,
+                                     cusp_csv_path=os.path.join(tmp, "cusp.tsv"), seed=7)
+        os.environ["CST_RENDER_BACKEND"] = "host"
+        fig, _ = FAST_plot_pitch_angle_grid(
+            mapping[4242]["ees"], filtered_orbits_df=load_filtered_orbits(os.path.join(tmp, "cusp.tsv")),
+            orbit_number=4242, scale_function_y="log", scale_function_z="log", show=False, colormap="inferno")
+        image = fig.render(dpi=200)
+        os.environ.pop("CST_RENDER_BACKEND", None)
+        canvas = image._np_canvas
+        golden = np.asarray(Image.open(os.path.join(here, GOLDEN_PITCH_GRID)).convert("RGB"))
+        require(canvas.shape[:2] == golden.shape[:2], f"pitch grid {canvas.shape} vs golden {golden.shape}")
+        n_diff = int((canvas[..., :3] != golden).any(axis=-1).sum())
+        share = n_diff / (golden.shape[0] * golden.shape[1])
+        say("font", path=None if font is None else os.path.relpath(font, here), bundled=font == text.BUNDLED_FONT,
+            golden=GOLDEN_PITCH_GRID, canvas=f"{golden.shape[1]}x{golden.shape[0]}", pixels_differ=n_diff,
+            share=f"{share:.6f}", limit=FONT_DIFF_LIMIT)
+        require(font is not None and os.path.isfile(font), f"no font file at {font}")
+        require(share <= FONT_DIFF_LIMIT, f"the pitch grid differs from its golden in {share:.2%} of the canvas")
+
+        t0 = time.perf_counter()
+        fastpng.library()
+        build_s = time.perf_counter() - t0
+        native_path, pil_path = os.path.join(tmp, "native.png"), os.path.join(tmp, "pil.png")
+        native_ms, pil_ms = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fastpng.write_png_rgb(canvas, native_path, 3)
+            native_ms.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(3):
+            t0 = time.perf_counter()
+            image.convert("RGB").save(pil_path, format="PNG", compress_level=3)
+            pil_ms.append((time.perf_counter() - t0) * 1e3)
+        with Image.open(native_path) as a, Image.open(pil_path) as b:
+            same = np.array_equal(np.asarray(a.convert("RGB")), np.asarray(b.convert("RGB")))
+            same = same and np.array_equal(np.asarray(a.convert("RGB")), canvas[..., :3])
+        say("png", library=os.path.relpath(str(fastpng.BUILD_INFO["path"]), here), variant=fastpng.BUILD_INFO["variant"],
+            build_s=f"{build_s:.2f}", blend=fastpng.blend_route(), canvas=f"{canvas.shape[1]}x{canvas.shape[0]}",
+            native_ms=f"{float(np.median(native_ms)):.2f}", pil_ms=f"{float(np.median(pil_ms)):.2f}",
+            native_bytes=os.path.getsize(native_path), pil_bytes=os.path.getsize(pil_path),
+            decoded_identical=same)
+        require(same, "the native and PIL PNGs decode to different pixels")
+
+
 def orbit_figures(paths: dict, df, orbit: int, extrema: dict | None) -> list:
     """Every figure FAST_process_single_orbit renders for one log/log orbit."""
     from configurable_spectrograms_torch.fast.constants import DEFAULT_INSTRUMENT_ORDER
@@ -544,6 +645,26 @@ def compare_panels(panels: list, dev: list, host: list) -> tuple[int, int, int]:
     return n_cells, n_off, n_boundary
 
 
+def make_archive(tmp: str, small=SHAPES[1], big=SHAPES[0]) -> tuple[str, dict]:
+    """The synthetic archive under *tmp*/data: orbits 100-102 at *small*, 103 at *big*, one cusp table *tmp*/cusp.tsv."""
+    from configurable_spectrograms_torch.data.synthetic import synth_fast_archive
+
+    root = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    mapping = synth_fast_archive(root, [100, 101, 102], n_time=small[0], n_angle=small[1],
+                                 n_energy=small[2], cusp_csv_path=os.path.join(tmp, "cusp.tsv"))
+    mapping.update(synth_fast_archive(root, [103], n_time=big[0], n_angle=big[1], n_energy=big[2],
+                                      compress="none", cusp_csv_path=os.path.join(tmp, "cusp_big.tsv")))
+    # One cusp table for all four orbits.
+    with open(os.path.join(tmp, "cusp.tsv")) as a, open(os.path.join(tmp, "cusp_big.tsv")) as b:
+        rows = a.read().rstrip("\n").splitlines() + b.read().rstrip("\n").splitlines()[1:]
+    with open(os.path.join(tmp, "cusp.tsv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    say("e2e", step="synth_archive", seconds=f"{time.perf_counter() - t0:.2f}",
+        orbits=f"100-102@{'x'.join(map(str, small))},103@{'x'.join(map(str, big))}", instruments=4)
+    return root, mapping
+
+
 def run_e2e(records: dict, small=SHAPES[1], big=SHAPES[0]) -> None:
     import torch
 
@@ -553,12 +674,11 @@ def run_e2e(records: dict, small=SHAPES[1], big=SHAPES[0]) -> None:
         load_fast_cdf_dataset,
         load_filtered_orbits,
     )
-    from configurable_spectrograms_torch.data.synthetic import synth_fast_archive
     from configurable_spectrograms_torch.fast.constants import DEFAULT_INSTRUMENT_ORDER
     from configurable_spectrograms_torch.fast.extrema import compute_global_extrema
     from configurable_spectrograms_torch.fast.process_orbit import FAST_process_single_orbit
     from configurable_spectrograms_torch.ops import kernels as K
-    from configurable_spectrograms_torch.render.figure import render_figures, save_image
+    from configurable_spectrograms_torch.render.device_cache import upload_telemetry
 
     try:
         import PIL  # noqa: F401
@@ -569,20 +689,8 @@ def run_e2e(records: dict, small=SHAPES[1], big=SHAPES[0]) -> None:
         say("e2e", composite_and_png="not run", why=f"PIL does not import ({exc})")
 
     with tempfile.TemporaryDirectory(prefix="cst_chip_smoke_") as tmp:
-        root = os.path.join(tmp, "data")
-        t0 = time.perf_counter()
-        mapping = synth_fast_archive(root, [100, 101, 102], n_time=small[0], n_angle=small[1],
-                                     n_energy=small[2], cusp_csv_path=os.path.join(tmp, "cusp.tsv"))
-        mapping.update(synth_fast_archive(root, [103], n_time=big[0], n_angle=big[1], n_energy=big[2],
-                                          compress="none", cusp_csv_path=os.path.join(tmp, "cusp_big.tsv")))
-        # One cusp table for all four orbits.
-        with open(os.path.join(tmp, "cusp.tsv")) as a, open(os.path.join(tmp, "cusp_big.tsv")) as b:
-            rows = a.read().rstrip("\n").splitlines() + b.read().rstrip("\n").splitlines()[1:]
-        with open(os.path.join(tmp, "cusp.tsv"), "w") as f:
-            f.write("\n".join(rows) + "\n")
+        root, mapping = make_archive(tmp, small, big)
         df = load_filtered_orbits(os.path.join(tmp, "cusp.tsv"))
-        say("e2e", step="synth_archive", seconds=f"{time.perf_counter() - t0:.2f}",
-            orbits=f"100-102@{'x'.join(map(str, small))},103@{'x'.join(map(str, big))}", instruments=4)
 
         extrema = {}
         render_s = {}
@@ -644,10 +752,13 @@ def run_e2e(records: dict, small=SHAPES[1], big=SHAPES[0]) -> None:
                 os.environ["CST_RENDER_BACKEND"] = backend
                 if not have_pil and backend == "device":
                     K.reset_launches()
+                before = upload_telemetry()
                 t0 = time.perf_counter()
                 results[backend] = render_all(panels)
                 torch.cuda.synchronize()
                 secs[backend] = time.perf_counter() - t0
+                if backend == "device":
+                    tele = telemetry_since(before)
             if not have_pil:
                 add_launches(records, {k: K.LAUNCHES[k] for k in ("collapse", "fused_quantize")})
                 require(min(K.LAUNCHES["collapse"], K.LAUNCHES["fused_quantize"]) > 0,
@@ -658,17 +769,21 @@ def run_e2e(records: dict, small=SHAPES[1], big=SHAPES[0]) -> None:
             say("e2e", orbit=orbit, shape=f"{T}x{A}x{E}", panels=len(panels), cells=cells,
                 cells_one_bin_apart=off, of_them_on_a_bin_boundary=on_boundary, bounds="bit-exact")
             if have_pil:
+                # The second device render of the same figures: the cubes are resident now.
                 os.environ["CST_RENDER_BACKEND"] = "device"
-                t0 = time.perf_counter()
-                images = render_figures(figs, dpi=FAST_SAVE_DPI)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                for k, img in enumerate(images):
-                    save_image(img, os.path.join(tmp, f"breakdown_{orbit}_{k}.png"))
-                t2 = time.perf_counter()
-                say("breakdown", orbit=orbit, figures=len(figs), dispatch_s=f"{secs['device']:.3f}",
-                    composite_s=f"{t1 - t0 - secs['device']:.3f}", png_s=f"{t2 - t1:.3f}",
-                    host_dispatch_warm_s=f"{secs['host']:.3f}")
+                second = render_and_save(figs, FAST_SAVE_DPI, os.path.join(tmp, f"breakdown_{orbit}"))
+                cube_bytes = len({id(p.cube) for _, _, p in panels}) * padded_cube_bytes(panels[0][2].cube)
+                say("breakdown", orbit=orbit, shape=f"{T}x{A}x{E}", figures=len(figs),
+                    dispatch_s=f"{secs['device']:.3f}", composite_s=f"{second['composite_s']:.3f}",
+                    render_minus_dispatch_s=f"{second['render_s'] - secs['device']:.3f}",
+                    png_s=f"{second['png_s']:.3f}", host_dispatch_warm_s=f"{secs['host']:.3f}",
+                    h2d_bytes=tele["upload_bytes"], cube_hits=tele["cube_hits"], cube_misses=tele["cube_misses"],
+                    second_render_s=f"{second['render_s']:.3f}", second_h2d_bytes=second["h2d_bytes"],
+                    second_cube_hits=second["cube_hits"], second_cube_misses=second["cube_misses"],
+                    orbit_padded_cube_bytes=cube_bytes)
+                require(second["h2d_bytes"] <= cube_bytes,
+                        f"orbit {orbit}: the second render shipped {second['h2d_bytes']} bytes, more than one padded "
+                        f"copy of its cubes ({cube_bytes})")
         for backend, secs_b in render_s.items():
             say("e2e", backend=backend, orbits=len(mapping), panels=n_panels,
                 panels_per_s=f"{n_panels / secs_b:.2f}", note="process_orbit incl. decode, composite, PNG")
@@ -683,6 +798,47 @@ def add_launches(records: dict, counts: dict) -> None:
     for name, n in counts.items():
         if name in records:
             records[name]["launches"] = records[name].get("launches", 0) + n
+
+
+def telemetry_since(before: dict) -> dict:
+    """What ``render.device_cache.upload_telemetry()`` counted since *before*."""
+    from configurable_spectrograms_torch.render.device_cache import upload_telemetry
+
+    after = upload_telemetry()
+    return {k: after[k] - before[k] for k in after}
+
+
+def padded_cube_bytes(cube: np.ndarray) -> int:
+    """Bytes of one padded device copy of *cube* (the dispatch's bucket shape)."""
+    from configurable_spectrograms_torch.render.dispatch import _bucket
+
+    T, A, E = cube.shape
+    return _bucket(T, 256, 64) * _bucket(A, 8, 8) * _bucket(E, 8, 8) * 4
+
+
+def render_and_save(figs: list, dpi: float, prefix: str) -> dict:
+    """Render *figs* and save each PNG: seconds of the render, of its composite stage and of the encodes, and the upload telemetry."""
+    import torch
+
+    from configurable_spectrograms_torch.render.figure import render_figures, save_image
+    from configurable_spectrograms_torch.render.device_cache import upload_telemetry
+    from configurable_spectrograms_torch.utils import timing
+
+    before = upload_telemetry()
+    timer = timing.ACTIVE = timing.StageTimer("chip_smoke")
+    try:
+        t0 = time.perf_counter()
+        images = render_figures(figs, dpi=dpi)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for k, img in enumerate(images):
+            save_image(img, f"{prefix}_{k}.png")
+        t2 = time.perf_counter()
+    finally:
+        timing.ACTIVE = None
+    tele = telemetry_since(before)
+    return {"render_s": t1 - t0, "composite_s": timer.totals.get("composite", 0.0), "png_s": t2 - t1,
+            "h2d_bytes": tele["upload_bytes"], "cube_hits": tele["cube_hits"], "cube_misses": tele["cube_misses"]}
 
 
 def stft_tolerance(ref, got) -> tuple[float, float]:
@@ -841,6 +997,8 @@ def run_generic(records: dict, mapping: dict, tmp: str) -> None:
 
 
 PANELS_PER_FIGURE = 8  # a pitch grid: 4 categories x full/zoom; an instrument grid: 4 instruments x full/zoom
+#: The render back end off: every render inline on its worker thread, every bucket uploading its cubes, no gate.
+BACKEND_OFF = {"CST_RENDER_COALESCE": "0", "CST_DEVICE_CUBE_CACHE": "0", "CST_HOST_COMPUTE_GATE": "0"}
 
 
 def batch_cwd(path: str, root: str, cusp: str) -> str:
@@ -940,40 +1098,57 @@ def png_bins_apart(a_path: str, b_path: str, colormap: str) -> int:
 
 
 def run_batch(records: dict, mapping: dict, root: str, cusp: str, tmp: str) -> None:
-    """The flagless flagship batch CLI over the archive (device, resume, host), then the single FAST CLI."""
+    """The flagless flagship batch CLI over the archive (device, resume, host, device with the back end off), then the single FAST CLI."""
     import torch
 
     from configurable_spectrograms_torch.cli import single_plot_FAST_spectrograms as cli_fast
     from configurable_spectrograms_torch.ops import kernels as K
+    from configurable_spectrograms_torch.render.device_cache import upload_telemetry
 
     n_orbits = len(mapping)
     want_pngs = n_orbits * 4 * 10  # orbits x 4 combos x (4 instruments x given/raw pitch grids + 2 grids)
     runs = {}
-    for backend in ("device", "host"):
-        cwd = batch_cwd(os.path.join(tmp, f"batch_{backend}"), root, cusp)
+    # The device backend with the render back end on (the defaults), the host backend, and the device
+    # backend with the coalescer, the cube cache and the compute gate off.
+    for name, backend, env in (("device", "device", {}), ("host", "host", {}), ("device_backend_off", "device", BACKEND_OFF)):
+        cwd = batch_cwd(os.path.join(tmp, f"batch_{name}"), root, cusp)
         K.reset_launches()
-        run = runs[backend] = run_flagship(cwd, backend)
+        before = upload_telemetry()
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            run = runs[name] = run_flagship(cwd, backend)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        tele = telemetry_since(before)
         launches = dict(K.LAUNCHES)
         progress = run["progress"]
         cursors = sorted(k for k in progress if k.endswith("_last_orbit"))
         flagged = {k: v for k, v in progress.items() if ("error" in k or "timed_out" in k) and v}
         panels = PANELS_PER_FIGURE * len(run["pngs"])
-        say("batch", backend=backend, archive_s=f"{run['seconds']:.2f}", pngs=len(run["pngs"]),
-            panels_per_s=f"{panels / run['seconds']:.2f}",
+        say("batch", run=name, backend=backend, env=json.dumps(env).replace(" ", ""), archive_s=f"{run['seconds']:.2f}",
+            pngs=len(run["pngs"]), panels_per_s=f"{panels / run['seconds']:.2f}",
             render_panels_per_s=f"{panels / (run['seconds'] - run['extrema_s']):.2f}",
-            extrema_s=f"{run['extrema_s']:.2f}", results=len(run["results"]),
+            extrema_s=f"{run['extrema_s']:.2f}", results=len(run["results"]), h2d_bytes=tele["upload_bytes"],
+            cube_hits=tele["cube_hits"], cube_misses=tele["cube_misses"], dispatches=tele["dispatches"],
             launches=json.dumps(launches), cursors=",".join(cursors), progress_keys=len(progress))
-        require(run["rc"] == 0, f"flagship CLI ({backend}) exited {run['rc']}")
+        require(run["rc"] == 0, f"flagship CLI ({name}) exited {run['rc']}")
         require(len(run["results"]) == n_orbits * 4 * 2 and all(r["status"] == "ok" for r in run["results"]),
-                f"flagship CLI ({backend}): not every result ok: {[r for r in run['results'] if r['status'] != 'ok']}")
-        require(len(run["pngs"]) == want_pngs, f"flagship CLI ({backend}) wrote {len(run['pngs'])} PNGs, not {want_pngs}")
+                f"flagship CLI ({name}): not every result ok: {[r for r in run['results'] if r['status'] != 'ok']}")
+        require(len(run["pngs"]) == want_pngs, f"flagship CLI ({name}) wrote {len(run['pngs'])} PNGs, not {want_pngs}")
         require(cursors == ["linear_linear_last_orbit", "linear_log_last_orbit", "log_linear_last_orbit",
                             "log_log_last_orbit"], f"progress cursors: {cursors}")
-        require(not flagged, f"flagship CLI ({backend}) recorded errors or timeouts: {flagged}")
-        require(run["extrema"] is not None, f"flagship CLI ({backend}) wrote no extrema JSON")
+        require(not flagged, f"flagship CLI ({name}) recorded errors or timeouts: {flagged}")
+        require(run["extrema"] is not None, f"flagship CLI ({name}) wrote no extrema JSON")
         if backend == "device":
             require(min(launches["collapse"], launches["fused_quantize"]) > 0,
-                    f"the flagship batch did not launch both kernels: {launches}")
+                    f"the flagship batch ({name}) did not launch both kernels: {launches}")
+        if name == "device":
+            require(tele["cube_hits"] > 0, f"the flagship batch never reused a resident cube: {tele}")
             add_launches(records, launches)
             # Resume: the same command again adds and rewrites nothing and launches nothing.
             K.reset_launches()
@@ -983,9 +1158,15 @@ def run_batch(records: dict, mapping: dict, root: str, cusp: str, tmp: str) -> N
             require(again["rc"] == 0 and again["pngs"] == run["pngs"], "the resumed batch added or rewrote PNGs")
             require(sum(K.LAUNCHES.values()) == 0, f"the resumed batch launched kernels: {K.LAUNCHES}")
 
-    dev, host = runs["device"], runs["host"]
+    dev, host, off = runs["device"], runs["host"], runs["device_backend_off"]
     require(sorted(dev["pngs"]) == sorted(host["pngs"]), "device and host batches wrote different file lists")
     require(dev["extrema"] == host["extrema"], "extrema JSON differs between the device and host batches")
+    require(sorted(dev["pngs"]) == sorted(off["pngs"]), "the batch with the back end off wrote another file list")
+    require(dev["extrema"] == off["extrema"], "extrema JSON differs with the render back end off")
+    say("batch", compare="back end on vs off (device)", files=len(off["pngs"]), extrema_json="identical",
+        on_panels_per_s=f"{PANELS_PER_FIGURE * len(dev['pngs']) / dev['seconds']:.2f}",
+        off_panels_per_s=f"{PANELS_PER_FIGURE * len(off['pngs']) / off['seconds']:.2f}",
+        on_archive_s=f"{dev['seconds']:.2f}", off_archive_s=f"{off['seconds']:.2f}")
     raw = sorted(p for p in dev["pngs"] if "_raw-" in p)
     apart = same = 0
     for rel in raw:
@@ -1032,6 +1213,75 @@ def run_batch(records: dict, mapping: dict, root: str, cusp: str, tmp: str) -> N
     os.environ.pop("CST_RENDER_BACKEND", None)
 
 
+#: The render back end's switches one at a time, for --backend-switches.
+BACKEND_SWITCHES = (
+    ("on", {}),
+    ("cache_off", {"CST_DEVICE_CUBE_CACHE": "0"}),
+    ("coalesce_off", {"CST_RENDER_COALESCE": "0"}),
+    ("gate_off", {"CST_HOST_COMPUTE_GATE": "0"}),
+    ("all_off", BACKEND_OFF),
+)
+
+
+def run_backend_switches(rounds: int, small=SHAPES[1], big=SHAPES[0]) -> dict:
+    """The flagship batch on the device backend with each switch of the render back end off alone, *rounds* times.
+
+    Each round runs every setting of :data:`BACKEND_SWITCHES` once, the
+    order rotated by one each round, so a drift of the host's speed
+    through the call spreads over all of them.  Every run must write the
+    first run's file list and extrema JSON.  Returns each setting's
+    panels/s and render panels/s (without the extrema pre-pass), run by run.
+    """
+    import statistics
+
+    from configurable_spectrograms_torch.ops import kernels as K
+    from configurable_spectrograms_torch.render.device_cache import upload_telemetry
+
+    per = {name: {"panels_per_s": [], "render_panels_per_s": []} for name, _ in BACKEND_SWITCHES}
+    first = None
+    with tempfile.TemporaryDirectory(prefix="cst_chip_switches_") as tmp:
+        root, mapping = make_archive(tmp, small, big)
+        for r in range(rounds):
+            order = BACKEND_SWITCHES[r % len(BACKEND_SWITCHES):] + BACKEND_SWITCHES[:r % len(BACKEND_SWITCHES)]
+            for name, env in order:
+                cwd = batch_cwd(os.path.join(tmp, f"switches_{r}_{name}"), root, os.path.join(tmp, "cusp.tsv"))
+                K.reset_launches()
+                before = upload_telemetry()
+                saved = {k: os.environ.get(k) for k in env}
+                os.environ.update(env)
+                try:
+                    run = run_flagship(cwd, "device")
+                finally:
+                    for k, v in saved.items():
+                        if v is None:
+                            os.environ.pop(k, None)
+                        else:
+                            os.environ[k] = v
+                tele = telemetry_since(before)
+                panels = PANELS_PER_FIGURE * len(run["pngs"])
+                pps, rpps = panels / run["seconds"], panels / (run["seconds"] - run["extrema_s"])
+                per[name]["panels_per_s"].append(pps)
+                per[name]["render_panels_per_s"].append(rpps)
+                say("switches", round=r, run=name, env=json.dumps(env).replace(" ", ""),
+                    archive_s=f"{run['seconds']:.2f}", extrema_s=f"{run['extrema_s']:.2f}", pngs=len(run["pngs"]),
+                    panels_per_s=f"{pps:.2f}", render_panels_per_s=f"{rpps:.2f}", h2d_bytes=tele["upload_bytes"],
+                    cube_hits=tele["cube_hits"], dispatches=tele["dispatches"], launches=json.dumps(K.LAUNCHES))
+                require(run["rc"] == 0 and all(x["status"] == "ok" for x in run["results"]),
+                        f"flagship CLI ({name}, round {r}) failed: rc {run['rc']}")
+                require(min(K.LAUNCHES["collapse"], K.LAUNCHES["fused_quantize"]) > 0,
+                        f"the flagship batch ({name}) did not launch both kernels: {K.LAUNCHES}")
+                if first is None:
+                    first = run
+                require(sorted(run["pngs"]) == sorted(first["pngs"]), f"{name}, round {r}: another file list")
+                require(run["extrema"] == first["extrema"], f"{name}, round {r}: another extrema JSON")
+    for name, v in per.items():
+        say("switches", setting=name, runs=len(v["panels_per_s"]),
+            median_panels_per_s=f"{statistics.median(v['panels_per_s']):.2f}",
+            median_render_panels_per_s=f"{statistics.median(v['render_panels_per_s']):.2f}")
+    os.environ.pop("CST_RENDER_BACKEND", None)
+    return per
+
+
 def write_wav(path: str, samples: np.ndarray, rate: int) -> None:
     import wave
 
@@ -1050,7 +1300,7 @@ def run_audio(records: dict, samples: np.ndarray) -> None:
     from configurable_spectrograms_torch.cli import audio as cli_audio
     from configurable_spectrograms_torch.ops import kernels as K
     from configurable_spectrograms_torch.ops.stft import audio_spectrogram_dataset
-    from configurable_spectrograms_torch.render.figure import render_figures, save_image
+    from configurable_spectrograms_torch.render.device_cache import upload_telemetry
     from configurable_spectrograms_torch.render.plotting import generic_plot_spectrogram_set
 
     def figure_of(ds):
@@ -1108,17 +1358,19 @@ def run_audio(records: dict, samples: np.ndarray) -> None:
 
         # Where one audio figure's time goes (the pallas raw dataset, 150 DPI as the CLI saves).
         fig = figure_of(captured[0][0])
+        before = upload_telemetry()
         t0 = time.perf_counter()
         render_all(figure_panels([fig], dpi=150))
         torch.cuda.synchronize()
         dispatch_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        image = render_figures([fig], dpi=150)[0]
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        save_image(image, os.path.join(tmp, "breakdown.png"))
+        first = telemetry_since(before)
+        second = render_and_save([fig], 150, os.path.join(tmp, "breakdown"))
         say("breakdown", figure="audio_raw", stft_s=f"{captured[0][1]:.3f}", dispatch_s=f"{dispatch_s:.3f}",
-            composite_s=f"{t1 - t0 - dispatch_s:.3f}", png_s=f"{time.perf_counter() - t1:.3f}")
+            composite_s=f"{second['composite_s']:.3f}", png_s=f"{second['png_s']:.3f}",
+            h2d_bytes=first["upload_bytes"], second_render_s=f"{second['render_s']:.3f}",
+            second_h2d_bytes=second["h2d_bytes"])
+        require(second["h2d_bytes"] == 0,
+                f"the second audio render shipped {second['h2d_bytes']} bytes: its padded cube did not stay resident")
 
         # The host-computed datasets on both render backends.
         for n_mels, ds in host.items():
@@ -1141,6 +1393,8 @@ def run_audio(records: dict, samples: np.ndarray) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true", help="build and check the kernels only")
+    ap.add_argument("--backend-switches", type=int, metavar="N", default=0,
+                    help="only time the flagship batch with each render back-end switch off alone, N rounds")
     args = ap.parse_args()
 
     import torch
@@ -1174,10 +1428,17 @@ def main() -> int:
     with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
         f.write(str(_build.BUILD_INFO["log"]))
 
+    if args.backend_switches:
+        per = run_backend_switches(args.backend_switches)
+        print(smi)
+        print(json.dumps({"switches": per}))
+        return 0
+
     records = check_kernels(device)
     samples = make_audio(AUDIO_SECONDS, AUDIO_RATE)
     records.update(check_stft_kernel(device, samples.astype(np.float32) / 32768.0))
     if not args.kernels:
+        run_font_and_png()
         run_e2e(records)
         run_audio(records, samples)
     print(smi)

@@ -69,12 +69,16 @@ def _copy_saved_png(src: str, dst: str) -> None:
     """Duplicate an already-encoded PNG to a second target path.
 
     Used for given/raw filename pairs whose content is identical by
-    construction.  The source is read into memory in one pass, and the
-    destination is written atomically via a unique ``.tmp-*`` sibling
-    so a SIGKILL mid-copy never leaves a truncated PNG that the
-    skip-existing resume would then preserve.
+    construction.  The source is read into memory in one pass (the paced
+    writeback queue may already have fsync'd and dropped its pages -- one
+    bounded read either way), and the destination is written atomically
+    via a unique ``.tmp-*`` sibling so a SIGKILL mid-copy never leaves a
+    truncated PNG that the skip-existing resume would then preserve.  The
+    copy joins the paced writeback queue like a real save.
     """
     import threading
+
+    from configurable_spectrograms_torch.utils.writeback import note_written
 
     with open(src, "rb") as fh:
         data = fh.read()
@@ -89,6 +93,7 @@ def _copy_saved_png(src: str, dst: str) -> None:
         except OSError:
             pass
         raise
+    note_written(dst)
 
 
 class _OrbitRun:

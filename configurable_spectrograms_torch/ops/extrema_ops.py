@@ -107,14 +107,14 @@ def batched_file_stats(cubes: list[np.ndarray]) -> list[dict[str, np.ndarray]]:
 
     if render_backend() == "host":
         return [host_file_stats(np.asarray(c, np.float32)) for c in cubes]
-    from configurable_spectrograms_torch.render.dispatch import _upload_cubes
+    from configurable_spectrograms_torch.render.device_cache import stack_cubes
     from configurable_spectrograms_torch.utils.torch_setup import get_device
 
     device = get_device()
     Tm = max(c.shape[0] for c in cubes)
     Am = max(c.shape[1] for c in cubes)
     Em = max(c.shape[2] for c in cubes)
-    batch = _upload_cubes(cubes, Tm, Am, Em, device)
+    batch = stack_cubes(cubes, Tm, Am, Em, device, cached=False)  # each file is read once
     t_valid = torch.tensor([c.shape[0] for c in cubes], dtype=torch.int32, device=device)
     out = file_extrema_stats_lanes(batch, t_valid)
     counts = out["counts"].cpu().numpy()

@@ -45,7 +45,8 @@ class RenderSpec:
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    """A float32 scalar tensor on *device*, made by a fill: a copy from the host would synchronise the stream."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def collapse_cube(cube: torch.Tensor, pitch_mask: torch.Tensor, t_valid: int) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Bucketed panel dispatch (port of ``render/{dispatch,drain,device_cache}.py``).
+"""Bucketed panel dispatch (port of ``render/dispatch.py``).
 
 Panels pad into shape buckets keyed on ``(Tp, Ap, Ep, y_scale, z_scale,
 percentiles, explicit, fused)``; each bucket is one collapse + quantize
@@ -11,14 +11,22 @@ vmax > vmin runs the fused kernel (:func:`..ops.kernels.fused_quantize_lanes`),
 both z scales.  Every other bucket runs the collapse kernel
 (:func:`..ops.kernels.collapse_lanes`) and then the eager-torch
 :func:`..ops.spectrogram.quantize_matrix`.  ``Ep`` pads to a multiple of 8
-on both routes (the kernels mask the column tail themselves).  Cubes are
-uploaded once per bucket however many lanes read them, and when the
-padded time axis is longer than the pixel width only the rows the pixels
-sample are gathered on the device before the copy.
+on both routes (the kernels mask the column tail themselves).  A bucket
+reads its cubes from the device-resident cube cache
+(:mod:`.device_cache`: pinned uploads on a copy stream, each cube once),
+and when the padded time axis is longer than the pixel width only the
+rows the pixels sample are gathered on the device before the copy.
+
+The render is split in two halves: :func:`enqueue_render_panels` queues
+every bucket's uploads, launches and packed copy into pinned host memory
+and returns a :class:`..render.drain.PendingRender`, whose ``wait()``
+synchronises and unpacks; :func:`render_panels` is the two together.
+Nothing in the enqueue half waits on the device: small lane arrays also
+go up from pinned memory, because a copy from pageable memory
+synchronises the stream.
 
 Left out of the JAX pipeline on purpose: the packed-uint8 lane transfer,
-the drain soft caps, the mesh, the resident result cache, the coalescer
-and the device-resident cube cache.
+the drain soft caps, the mesh and the resident result cache.
 """
 
 from __future__ import annotations
@@ -33,11 +41,12 @@ from configurable_spectrograms_torch.ops.spectrogram import (
     quantize_matrix,
 )
 from configurable_spectrograms_torch.render.backend import render_backend
+from configurable_spectrograms_torch.render.device_cache import count, stack_cubes
+from configurable_spectrograms_torch.render.drain import PendingBucket, PendingRender
 from configurable_spectrograms_torch.render.panel import (
     PanelData,
     _bucket,
     _render_group_host,
-    build_panel_result,
 )
 from configurable_spectrograms_torch.render.tile import make_x_map, pixel_columns
 
@@ -59,27 +68,20 @@ def _bucket_key(p: PanelData) -> tuple:
     )
 
 
-def _upload_cubes(cubes: list[np.ndarray], Tp: int, Ap: int, Ep: int,
-                  device: torch.device) -> torch.Tensor:
-    """Copy host cubes into one (U, Tp, Ap, Ep) device tensor, NaN-padded."""
-    out = torch.empty((len(cubes), Tp, Ap, Ep), dtype=torch.float32, device=device)
-    for u, c in enumerate(cubes):
-        src = torch.from_numpy(np.ascontiguousarray(c, np.float32))
-        if tuple(c.shape) == (Tp, Ap, Ep):
-            out[u].copy_(src)
-        else:
-            out[u].fill_(float("nan"))
-            T, A, E = c.shape
-            out[u, :T, :A, :E].copy_(src)
-    return out
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A small host array on *device*: through pinned memory on a card (no stream sync), as is on the CPU."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
-def _render_group_device(panels: list[PanelData], idxs: list[int], key: tuple, tile_h: int,
-                         tile_w: int, device: torch.device, results: list) -> None:
-    """One bucket: upload, run its route, gather rows, copy back once, unpack."""
+def _enqueue_group(panels: list[PanelData], idxs: list[int], key: tuple, tile_h: int, tile_w: int,
+                   device: torch.device) -> PendingBucket:
+    """One bucket: upload, run its route, gather rows, queue its one copy back."""
     Tp, Ap, Ep, y_scale, z_scale, lo_pct, hi_pct, explicit, fused = key
     n = len(idxs)
-    # Deduplicate cube uploads within the bucket.
+    # Deduplicate cubes within the bucket.
     slot_of: dict[int, int] = {}
     unique: list[np.ndarray] = []
     u_idx = np.zeros((n,), np.int32)
@@ -126,12 +128,13 @@ def _render_group_device(panels: list[PanelData], idxs: list[int], key: tuple, t
                                     int(t_counts[j]), Tp, tile_w)
             t_maps[j, :tile_w] = cols
 
-    def dev(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(device)
-
-    cubes = _upload_cubes(unique, Tp, Ap, Ep, device)
-    u_t, masks_t, ev_t = dev(u_idx), dev(masks), dev(e_valids)
-    tv_t, ts_t, tc_t, zb_t, en_t = dev(t_valids), dev(t_starts), dev(t_counts), dev(z_bounds), dev(energies)
+    count(dispatches=1, lanes=n)
+    cubes = stack_cubes(unique, Tp, Ap, Ep, device)
+    u_t, masks_t, ev_t, tv_t, ts_t, tc_t, zb_t, en_t, zbe_t, zbf_t, tm_t = (
+        _to_device(a, device)
+        for a in (u_idx, masks, e_valids, t_valids, t_starts, t_counts, z_bounds, energies, zb_e_valids,
+                  zb_full, t_maps)
+    )
     if fused:
         out = fused_quantize_lanes(cubes, u_t, masks_t, ev_t, tv_t, ts_t, tc_t, zb_t, z_scale)
         kept_pos, n_kept, flip, y0, y1 = _kept_energy_order(out["col_all_nan"], ev_t, en_t)
@@ -144,11 +147,10 @@ def _render_group_device(panels: list[PanelData], idxs: list[int], key: tuple, t
         m = collapse_lanes(cubes, u_t, masks_t, tv_t)
         spec = RenderSpec(8, 8, y_scale, z_scale, lo_pct, hi_pct)
         q = quantize_matrix(m, en_t, ev_t, tv_t, ts_t, tc_t, zb_t, spec,
-                            zb_e_valid=dev(zb_e_valids), zb_full_time=dev(zb_full),
-                            skip_percentile=explicit)
+                            zb_e_valid=zbe_t, zb_full_time=zbf_t, skip_percentile=explicit)
     idx = q["idx"]
     if gather_w:
-        idx = idx[torch.arange(n, device=device).view(n, 1), dev(t_maps)]
+        idx = idx[torch.arange(n, device=device).view(n, 1), tm_t]
     meta = torch.cat(
         [
             torch.stack([q[k].to(torch.float32) for k in ("n_kept", "flip", "y0", "y1", "vmin", "vmax", "empty")], dim=1),
@@ -156,38 +158,49 @@ def _render_group_device(panels: list[PanelData], idxs: list[int], key: tuple, t
         ],
         dim=1,
     )
-    rows_out = idx.shape[1]
-    packed = torch.cat([idx.reshape(n, -1), meta.contiguous().view(torch.uint8)], dim=1).cpu().numpy()
-    idx_host = packed[:, : rows_out * Ep].reshape(n, rows_out, Ep)
-    meta_host = packed[:, rows_out * Ep :].copy().view(np.float32)
-    for j, i in enumerate(idxs):
-        rows = t_maps[j] if gather_w else np.arange(Tp)
-        results[i] = build_panel_result(
-            panels[i], np.ascontiguousarray(idx_host[j]), meta_host[j].copy(), rows,
-            bool(gather_w), tile_h, tile_w, y_scale, z_scale,
-        )
+    packed = torch.cat([idx.reshape(n, -1), meta.contiguous().view(torch.uint8)], dim=1)
+    refs = [cubes, u_t, masks_t, ev_t, tv_t, ts_t, tc_t, zb_t, en_t, zbe_t, zbf_t, tm_t, packed]
+    bucket = PendingBucket(idxs, Tp, Ep, y_scale, z_scale, gather_w, t_maps, packed, refs=refs)
+    if device.type == "cuda":
+        bucket.host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+        bucket.host.copy_(packed, non_blocking=True)
+        bucket.event = torch.cuda.Event()
+        bucket.event.record(torch.cuda.current_stream(device))
+    return bucket
 
 
-def render_panels(panels: list[PanelData], tile_h: int, tile_w: int) -> list[dict]:
-    """Rasterize many panels: one device program and one copy per bucket.
-
-    Returns per-panel results in input order (see
-    :func:`..render.panel.build_panel_result`).  With
-    ``CST_RENDER_BACKEND=host`` every bucket renders in numpy instead.
-    """
-    results: list[dict | None] = [None] * len(panels)
-    if not panels:
-        return results
+def _groups(panels: list[PanelData]) -> dict[tuple, list[int]]:
     groups: dict[tuple, list[int]] = {}
     for i, p in enumerate(panels):
         groups.setdefault(_bucket_key(p), []).append(i)
+    return groups
+
+
+def enqueue_render_panels(panels: list[PanelData], tile_h: int, tile_w: int) -> PendingRender:
+    """Queue every bucket of *panels*; ``.wait()`` on the result returns the per-panel results in input order.
+
+    With ``CST_RENDER_BACKEND=host`` every bucket renders in numpy here and
+    the :class:`PendingRender` holds no device work.
+    """
+    results: list[dict | None] = [None] * len(panels)
+    if not panels:
+        return PendingRender(panels, tile_h, tile_w, results, [])
+    groups = _groups(panels)
     if render_backend() == "host":
         for (_, _, _, y_scale, z_scale, lo_pct, hi_pct, _, _), idxs in groups.items():
             _render_group_host(panels, idxs, tile_h, tile_w, y_scale, z_scale, lo_pct, hi_pct, results)
-        return results
+        return PendingRender(panels, tile_h, tile_w, results, [])
     from configurable_spectrograms_torch.utils.torch_setup import get_device
 
     device = get_device()
-    for key, idxs in groups.items():
-        _render_group_device(panels, idxs, key, tile_h, tile_w, device, results)
-    return results
+    buckets = [_enqueue_group(panels, idxs, key, tile_h, tile_w, device) for key, idxs in groups.items()]
+    return PendingRender(panels, tile_h, tile_w, results, buckets)
+
+
+def render_panels(panels: list[PanelData], tile_h: int, tile_w: int) -> list[dict]:
+    """Rasterize many panels: one device program and one copy per bucket (enqueue, then wait).
+
+    Returns per-panel results in input order (see
+    :func:`..render.panel.build_panel_result`).
+    """
+    return enqueue_render_panels(panels, tile_h, tile_w).wait()

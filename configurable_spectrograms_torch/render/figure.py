@@ -4,19 +4,23 @@ A :class:`SpectroFigure` mirrors the slice of the matplotlib
 ``Figure``/``Axes`` API the reference's pipelines touch, but nothing
 rasterizes until :meth:`SpectroFigure.savefig`/:meth:`render`: the figure
 only accumulates :class:`PanelData` descriptions.  :func:`render_figures`
-pools the panels of many figures into the bucketed dispatch
-(:func:`..render.dispatch.render_panels`) and the PIL compositor draws
-frames, ticks, labels, colorbars, cusp markers and titles around the tiles.
-PIL is imported only by the composite and the PNG write.
+pools the panels of many figures into the bucketed dispatch, through the
+render coalescer (:func:`..render.service.coalesced_render`), and the PIL
+compositor draws frames, ticks, labels, colorbars, cusp markers and titles
+around the tiles.  :func:`save_image` encodes with the native PNG encoder
+(:mod:`.fastpng`) and queues the file for paced writeback
+(:mod:`..utils.writeback`).  One host-compute gate slot
+(:mod:`..utils.compute_gate`) spans a figure's render and encode.  PIL is
+imported only by the composite and the non-PNG writes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Any
 
 from configurable_spectrograms_torch.render.compositor import AXIS_LABEL_PT, _Layout
-from configurable_spectrograms_torch.render.dispatch import render_panels
 from configurable_spectrograms_torch.render.panel import PanelData
 
 
@@ -96,8 +100,17 @@ class SpectroFigure:
     # -- rendering -----------------------------------------------------------
 
     def savefig(self, path: str, dpi: float | None = None, compress_level: int = 3) -> None:
-        """Render and write a PNG (``compress_level`` is PIL's zlib level)."""
-        save_image(self.render(dpi=dpi), path, compress_level=compress_level)
+        """Render and write a PNG (``compress_level``: the deflate level wherever the encoder deflates).
+
+        One compute-gate slot spans render AND encode (the inner gates are
+        re-entrant): releasing between the two would let a sibling worker
+        start its composite mid-figure and steal interpreter slices from
+        this one's encode.
+        """
+        from configurable_spectrograms_torch.utils.compute_gate import host_compute_gate
+
+        with host_compute_gate():
+            save_image(self.render(dpi=dpi), path, compress_level=compress_level)
 
     def render(self, dpi: float | None = None):
         return render_figures([self], dpi=dpi)[0]
@@ -116,29 +129,46 @@ class SpectroFigure:
 
 
 def save_image(image, path: str, compress_level: int = 3) -> None:
-    """Write a rendered figure image; PNG writes are atomic.
+    """Write a rendered figure image: PNG through the native encoder, atomically, then paced writeback.
 
-    A PNG is encoded to a unique ``.tmp-*`` sibling and then renamed, so a
-    kill mid-write never leaves a truncated PNG under its final name.
+    A compositor image carries its numpy RGBA canvas (``_np_canvas``),
+    which the encoder reads in place (it drops the alpha); any other image
+    is converted to RGB first.  The PNG is encoded to a unique ``.tmp-*``
+    sibling and renamed, so a kill mid-write never leaves a truncated PNG
+    under its final name (the batch resume skips existing files).  Other
+    formats go through PIL.
     """
     import threading
+
+    import numpy as np
+
+    from configurable_spectrograms_torch.render.fastpng import write_png_rgb
+    from configurable_spectrograms_torch.utils.compute_gate import host_compute_gate
+    from configurable_spectrograms_torch.utils.timing import active_stage
+    from configurable_spectrograms_torch.utils.writeback import note_written
 
     is_png = path.lower().endswith(".png") or "." not in os.path.basename(path)
     if not is_png:
         fmt_needs_rgb = os.path.splitext(path)[1].lower() in (".jpg", ".jpeg", ".bmp")
         (image.convert("RGB") if fmt_needs_rgb and image.mode != "RGB" else image).save(path)
         return
-    tmp = f"{path}.tmp-{os.getpid()}-{threading.get_ident()}"
-    try:
-        img = image if image.mode == "RGB" else image.convert("RGB")
-        img.save(tmp, format="PNG", compress_level=compress_level)
-        os.replace(tmp, path)
-    except BaseException:
+    with host_compute_gate(), active_stage("png_encode"):
+        arr = getattr(image, "_np_canvas", None)
+        if arr is None:
+            arr = np.asarray(image if image.mode == "RGB" else image.convert("RGB"))
+        # Unique per writer: concurrent raw/given jobs may target the same
+        # final name (the reference's documented write race).
+        tmp = f"{path}.tmp-{os.getpid()}-{threading.get_ident()}"
         try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
+            write_png_rgb(arr, tmp, compress_level)
+            os.replace(tmp, path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+        note_written(path)
 
 
 def render_figures(figures: list["SpectroFigure"], dpi: float | None = None) -> list:
@@ -147,16 +177,34 @@ def render_figures(figures: list["SpectroFigure"], dpi: float | None = None) -> 
     Panels from every figure group by tile geometry, so an orbit's
     given/raw figure pair rasterizes in a couple of device programs.
     Returns one PIL image per figure.
+
+    One gate slot spans the whole render.  It is yielded around the render
+    of the panels only when that render blocks: when the coalescer hands
+    it to its dispatcher thread.  With ``CST_RENDER_COALESCE=0`` the
+    render runs inline on this thread, host compute included, and keeps
+    the slot.
     """
-    layouts = [_Layout(fig, float(dpi or fig.dpi)) for fig in figures]
-    by_tile: dict[tuple[int, int], list[tuple[int, int]]] = {}
-    for f_i, (fig, layout) in enumerate(zip(figures, layouts)):
-        for a_i, ax in enumerate(fig.axes):
-            ax.result = None
-            if ax.panel is not None:
-                by_tile.setdefault((layout.tile_h, layout.tile_w), []).append((f_i, a_i))
-    for (tile_h, tile_w), slots in by_tile.items():
-        panels = [figures[f_i].axes[a_i].panel for f_i, a_i in slots]
-        for (f_i, a_i), res in zip(slots, render_panels(panels, tile_h, tile_w)):
-            figures[f_i].axes[a_i].result = res
-    return [layout.composite() for layout in layouts]
+    from configurable_spectrograms_torch.render.service import coalesced_render, coalescing
+    from configurable_spectrograms_torch.utils.compute_gate import gate_released, host_compute_gate
+    from configurable_spectrograms_torch.utils.timing import active_stage
+
+    def _composite_one(layout):
+        # Re-entrant under the outer gate; still gates direct callers.
+        with host_compute_gate(), active_stage("composite"):
+            return layout.composite()
+
+    with host_compute_gate():
+        layouts = [_Layout(fig, float(dpi or fig.dpi)) for fig in figures]
+        by_tile: dict[tuple[int, int], list[tuple[int, int]]] = {}
+        for f_i, (fig, layout) in enumerate(zip(figures, layouts)):
+            for a_i, ax in enumerate(fig.axes):
+                ax.result = None
+                if ax.panel is not None:
+                    by_tile.setdefault((layout.tile_h, layout.tile_w), []).append((f_i, a_i))
+        for (tile_h, tile_w), slots in by_tile.items():
+            panels = [figures[f_i].axes[a_i].panel for f_i, a_i in slots]
+            with gate_released() if coalescing() else contextlib.nullcontext():
+                results = coalesced_render(panels, tile_h, tile_w)
+            for (f_i, a_i), res in zip(slots, results):
+                figures[f_i].axes[a_i].result = res
+        return [_composite_one(layout) for layout in layouts]

@@ -1,43 +1,37 @@
 """Font loading and text drawing helpers for the PIL compositor.
 
 Uses DejaVu Sans (matplotlib's default font family, so rendered figures
-look like the reference's) located from matplotlib's data directory when
-available, with a bundled-PIL fallback.  No matplotlib rendering code runs;
-only the .ttf file is borrowed.
+look like the reference's).  The port carries the font file itself
+(``fonts/DejaVuSans.ttf``, Bitstream Vera licence in ``fonts/LICENSE_DEJAVU``):
+a host without matplotlib and without system fonts would otherwise fall
+back to PIL's 10-px default font whatever size a label asks for.
 
 A copy of the JAX package's ``render/text.py`` with two changes: PIL is
-imported inside the functions that draw, and cached text tiles are pasted
-with ``Image.paste`` (the JAX package's native blend gives the same bytes).
+imported inside the functions that draw, and the font is the bundled one
+(the JAX module searches matplotlib's data directory and a few system
+paths, and falls back to PIL's default font).  Cached text tiles are
+pasted by the native blend (:func:`..render.fastpng.canvas_blender`) where
+it is byte-equal to this Pillow's ``Image.paste``, else by ``Image.paste``.
 """
 
 from __future__ import annotations
 
 import functools
-import glob
 import os
 
-_FONT_CANDIDATES = [
-    "/opt/venv/lib/python*/site-packages/matplotlib/mpl-data/fonts/ttf/DejaVuSans.ttf",
-    "/usr/lib/python*/site-packages/matplotlib/mpl-data/fonts/ttf/DejaVuSans.ttf",
-    "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf",
-]
+import numpy as np
+
+#: The font the port carries (same file as matplotlib's DejaVuSans.ttf).
+BUNDLED_FONT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fonts", "DejaVuSans.ttf")
+
+#: Distinguishes "never resolved for this canvas" from a resolved None
+#: (native blend not in use) in the per-canvas paste cache.
+_UNSET = object()
 
 
-@functools.lru_cache(maxsize=1)
-def _font_path() -> str | None:
-    try:
-        import matplotlib
-
-        p = os.path.join(matplotlib.get_data_path(), "fonts", "ttf", "DejaVuSans.ttf")
-        if os.path.exists(p):
-            return p
-    except Exception:
-        pass
-    for pattern in _FONT_CANDIDATES:
-        hits = glob.glob(pattern)
-        if hits:
-            return hits[0]
-    return None
+def _font_path() -> str:
+    """The font file every label is drawn with: the one the port carries."""
+    return BUNDLED_FONT
 
 
 @functools.lru_cache(maxsize=64)
@@ -45,10 +39,7 @@ def get_font(px: int):
     """A font whose nominal size is *px* pixels."""
     from PIL import ImageFont
 
-    path = _font_path()
-    if path is not None:
-        return ImageFont.truetype(path, px)
-    return ImageFont.load_default()
+    return ImageFont.truetype(_font_path(), px)
 
 
 def pt_to_px(points: float, dpi: float) -> int:
@@ -65,7 +56,33 @@ def _measure():
 
 
 def _paste_tile(canvas, tile, x: int, y: int) -> None:
-    """``canvas.paste(tile, (x, y), tile)``: alpha-blend a cached text tile."""
+    """``canvas.paste(tile, (x, y), tile)``, through the native blend where it is in use.
+
+    A figure pastes ~120 small cached text tiles, and PIL's per-paste
+    dispatch dwarfs the blending.  When the canvas is the compositor's
+    numpy-backed figure canvas (``_np_canvas``, shared memory with the PIL
+    Image) and :func:`..render.fastpng.blend_route` is ``"native"``, each
+    paste is one ctypes call with byte-identical output; otherwise (and for
+    tiles the kernel does not take) it is ``Image.paste``.  The tile's RGBA
+    bytes are cached on the Image object: tiles are lru-cached and
+    immutable once built.
+    """
+    np_canvas = getattr(canvas, "_np_canvas", None)
+    if np_canvas is not None:
+        paste = getattr(canvas, "_blend_paste", _UNSET)
+        if paste is _UNSET:
+            from configurable_spectrograms_torch.render import fastpng
+
+            paste = canvas._blend_paste = fastpng.canvas_blender(np_canvas)
+        if paste is not None:
+            arr = getattr(tile, "_np_rgba", None)
+            if arr is None and tile.mode == "RGBA":
+                arr = np.asarray(tile, dtype=np.uint8)
+                if not (arr.ndim == 3 and arr.shape[2] == 4 and arr.flags.c_contiguous):
+                    arr = False
+                tile._np_rgba = arr
+            if arr is not None and arr is not False and paste(arr, x, y):
+                return
     canvas.paste(tile, (x, y), tile)
 
 

@@ -6,8 +6,10 @@ zoom-window and x-clip selection resolve here to a contiguous
 device never sees dynamic shapes.  Mirrors the row-filtering steps of the
 reference's ``make_spectrogram`` (reference plotting.py:204-219,238-253).
 
-A copy of the JAX package's ``render/tile.py`` without its optional native
-blit tail, whose output is byte-identical to the numpy tail kept here.
+A copy of the JAX package's ``render/tile.py``: the run blit goes through
+the native kernel (:func:`..render.fastpng.blit_runs`, byte-identical to
+the numpy tail), and the numpy tail runs only for a layout the kernel does
+not take.
 """
 
 from __future__ import annotations
@@ -154,6 +156,16 @@ def resample_indices(
     starts = np.concatenate(([0], boundaries))
     counts = np.diff(np.concatenate((starts, [out_h])))
     sel = row_src[starts]  # (n_runs,) energy columns actually drawn
+
+    # Native one-pass tail: gather + LUT colour + run replication in one
+    # C++ walk straight into the destination (integer and uint8 operations
+    # only, so bit-identical to the numpy tail below).  The geometry above
+    # stays in float32 numpy so host and device mappings agree bit for bit.
+    from configurable_spectrograms_torch.render import fastpng
+
+    dest = out if out is not None else np.empty((out_h, out_w, 4), np.uint8)
+    if fastpng.blit_runs(idx, t_idx, x_ok, sel, starts, counts, lut_ext, dest):
+        return dest
 
     # Single fused gather: two chained gathers materialize an (n_runs, T)
     # intermediate, ~3x slower than the slab order on the host backend's

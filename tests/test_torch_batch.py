@@ -5,7 +5,7 @@ synthetic archive (2 orbits, 2 instruments) at ``max_workers=1``, where
 completion order, and so the progress cursor, is deterministic
 (``FAST_plot_spectrograms_multi``, the error taxonomy and the timeout
 retry are in tests/test_torch_batch_multi.py, on the same fixtures).  On the host backend the port must
-write the JAX package's PNG bytes, progress JSON and extrema JSON; on the
+write the JAX package's PNG pixels, progress JSON and extrema JSON; on the
 device backend (CPU tensors, the kernels' plain versions) the PNGs may
 differ only in cells one colormap bin apart.  The JAX package renders on
 its host backend throughout: it is the reference both of the port's
@@ -29,7 +29,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from test_torch_slice import _assert_same_or_one_bin_apart
+from test_torch_slice import _assert_same_or_one_bin_apart, _assert_same_pixels
 
 torch.set_num_threads(1)
 
@@ -71,7 +71,6 @@ def jax_reference(archive):
     """The JAX package's run for a driver and its arguments, on its host backend (made once per module)."""
     from configurable_spectrograms_tpu.data import cdf_utils as jcdf
     from configurable_spectrograms_tpu.fast import batch_directory as jbd
-    from configurable_spectrograms_tpu.render import fastpng
     from configurable_spectrograms_tpu.render import figure as jfigure
 
     runs = {}
@@ -80,8 +79,6 @@ def jax_reference(archive):
         key = (driver, data, tuple(sorted(kw.items())))
         if key not in runs:
             with pytest.MonkeyPatch.context() as mp:
-                # PIL encodes for both packages, so identical pixels are identical bytes.
-                mp.setattr(fastpng, "write_png_rgb", lambda *a, **k: False)
                 mp.setitem(jfigure._BACKEND, "mode", "host")
                 mp.setenv("CST_CUSP_CSV", archive["cusp"])
                 mp.setattr(jcdf, "filtered_orbits_cache", {})
@@ -107,7 +104,7 @@ def _assert_same_trees(got: dict, want: dict, backend: str) -> None:
     assert list(got) == list(want)
     for path in want:
         if backend == "host":
-            assert got[path] == want[path], path
+            _assert_same_pixels(got[path], want[path], path)
         else:
             _assert_same_or_one_bin_apart(got[path], want[path], path)
 

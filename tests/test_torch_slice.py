@@ -1,11 +1,12 @@
 """The FAST pitch-grid slice through the port, end to end, on the CPU.
 
 One small synthetic orbit (A = 16) goes through the extrema pre-pass and
-``FAST_process_single_orbit`` of both packages; the PNG files must be
-byte-identical on the host backend and agree within one colormap bin on
-the device backend.  The golden pitch grid must come out of the port pixel
+``FAST_process_single_orbit`` of both packages; the PNG files must decode
+to identical pixels on the host backend and agree within one colormap bin
+on the device backend.  The golden pitch grid must come out of the port pixel
 for pixel.  And the port must import and run the slice, the audio CLI,
-the generic batch and the flagship batch CLI with ``jax`` blocked.
+the generic batch and the flagship batch CLI with ``jax`` (and ``matplotlib``)
+blocked.
 """
 
 import os
@@ -39,8 +40,29 @@ def orbit_archive(tmp_path_factory):
     return {"root": root, "mapping": mapping}
 
 
+def _pixels(png: bytes) -> np.ndarray:
+    import io
+
+    from PIL import Image
+
+    with Image.open(io.BytesIO(png)) as img:
+        return np.asarray(img.convert("RGB"))
+
+
+def _assert_same_pixels(png_a: bytes, png_b: bytes, path: str) -> None:
+    """The two PNG files decode to the same image.
+
+    The packages' encoders need not write the same bytes: the port's copy
+    of the encoder runs its run-length path in every build, the JAX
+    package's only where it links libdeflate (else zlib's deflate, or PIL
+    where nothing builds).
+    """
+    a, b = _pixels(png_a), _pixels(png_b)
+    assert a.shape == b.shape and np.array_equal(a, b), path
+
+
 def _assert_same_or_one_bin_apart(png_a: bytes, png_b: bytes, path: str) -> None:
-    """Identical bytes, or pixels that differ only by one colormap bin.
+    """Identical pixels, or pixels that differ only by one colormap bin.
 
     The device backends of the two packages take float32 ``log10`` from two
     libraries (XLA's and torch's), which disagree in the last ulp on a few
@@ -52,14 +74,10 @@ def _assert_same_or_one_bin_apart(png_a: bytes, png_b: bytes, path: str) -> None
     """
     if png_a == png_b:
         return
-    import io
-
-    from PIL import Image
-
     from configurable_spectrograms_torch.ops._colormap_data import colormap_lut
 
-    a = np.asarray(Image.open(io.BytesIO(png_a)).convert("RGB")).astype(np.int64)
-    b = np.asarray(Image.open(io.BytesIO(png_b)).convert("RGB")).astype(np.int64)
+    a = _pixels(png_a).astype(np.int64)
+    b = _pixels(png_b).astype(np.int64)
     assert a.shape == b.shape, path
     diff = (a != b).any(axis=-1)
     lut = colormap_lut("inferno")[:, :3].astype(np.int64)
@@ -73,23 +91,20 @@ def _assert_same_or_one_bin_apart(png_a: bytes, png_b: bytes, path: str) -> None
 def test_slice_writes_the_same_pngs_as_the_jax_package(orbit_archive, backend, monkeypatch):
     """Extrema pass + log/log orbit render through both packages.
 
-    The JAX package encodes with its native PNG writer when it can; that
-    writer is switched off here so both packages encode through PIL, and
-    identical pixels then mean identical bytes.  The host backends must
-    write identical bytes; the device backends identical bytes or pixels
-    one colormap bin apart (see :func:`_assert_same_or_one_bin_apart`).
+    Each package encodes with its own native PNG writer, so the files are
+    compared decoded.  The host backends must write identical pixels; the
+    device backends identical pixels or pixels one colormap bin apart (see
+    :func:`_assert_same_or_one_bin_apart`).
     """
     from configurable_spectrograms_tpu.data.cdf_utils import load_filtered_orbits as jax_cusp
     from configurable_spectrograms_tpu.fast.extrema import compute_global_extrema as jax_extrema
     from configurable_spectrograms_tpu.fast.process_orbit import FAST_process_single_orbit as jax_orbit
-    from configurable_spectrograms_tpu.render import fastpng
 
     from configurable_spectrograms_torch.data.cdf_utils import load_filtered_orbits
     from configurable_spectrograms_torch.fast.extrema import compute_global_extrema
     from configurable_spectrograms_torch.fast.process_orbit import FAST_process_single_orbit
     from configurable_spectrograms_torch.ops import kernels
 
-    monkeypatch.setattr(fastpng, "write_png_rgb", lambda *a, **k: False)
     monkeypatch.setenv("CST_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("CST_RENDER_BACKEND", backend)
     root, mapping = orbit_archive["root"], orbit_archive["mapping"]
@@ -109,7 +124,7 @@ def test_slice_writes_the_same_pngs_as_the_jax_package(orbit_archive, backend, m
     assert list(out["torch"]) == list(out["jax"])
     for path in out["jax"]:
         if backend == "host":
-            assert out["torch"][path] == out["jax"][path], path
+            _assert_same_pixels(out["torch"][path], out["jax"][path], path)
         else:
             _assert_same_or_one_bin_apart(out["torch"][path], out["jax"][path], path)
     assert kernels.LAUNCHES == {"collapse": 0, "fused_quantize": 0, "stft_power": 0}  # CPU tensors launch nothing
@@ -144,7 +159,7 @@ _BLOCKED_RUN = textwrap.dedent(
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "configurable_spectrograms_tpu"):
+            if name.split(".")[0] in ("jax", "jaxlib", "configurable_spectrograms_tpu", "matplotlib"):
                 raise ImportError(f"{name} is blocked")
             return None
 
@@ -204,7 +219,10 @@ _BLOCKED_RUN = textwrap.dedent(
     flagship.FastBatchConfig = functools.partial(FastBatchConfig, combos=(ScaleCombo("log", "log", "inferno"),))
     flagship.main()
     set_logfile_path(None)
-    assert not any(k.split(".")[0] in ("jax", "jaxlib", "configurable_spectrograms_tpu") for k in sys.modules)
+    assert not any(k.split(".")[0] in ("jax", "jaxlib", "configurable_spectrograms_tpu", "matplotlib")
+                   for k in sys.modules)
+    from configurable_spectrograms_torch.render import text
+    assert text._font_path() == text.BUNDLED_FONT
     print("FLAGSHIP", sum(len(f) for _, _, f in os.walk("FAST_plots")))
     """
 )
