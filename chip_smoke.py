@@ -82,6 +82,33 @@ Phases, one line each, in order:
                backend: --cdf-file (the 8192x64x128 ees file), --data-folder
                with --orbit, and --instrument-file for all four instruments
                (--date needs the network and is not run).
+   parallel -- the parallel layer (one process per GPU, torch.distributed),
+               after [batch] on the same archive; ranks are spawned
+               processes (start method spawn) and report their launch
+               counts themselves.
+               (a) two Gloo ranks on the one card (LOCAL_RANK 0 each):
+               sharded_extrema_stats on 8 cubes of 8192x64x128 (2.15 GB, a
+               memory-mapped .npy; each rank reads its 1.07 GB block), some
+               with t_valid < T, once on a ('data',) mesh of 2 and once on a
+               ('data', 'time') mesh of 1x2: counts and histogram bit-equal
+               to one process's batched_file_stats, collapse launches > 0 in
+               each rank, the seconds of each mesh.
+               (b) one NCCL rank through init_distributed() with torchrun's
+               variables: the flagship CLI as in [batch] (one all_reduce
+               first); the same file list and extrema JSON as the ungrouped
+               device run, its render and extrema pre-pass on cuda:0.
+               (c) two Gloo ranks on the one card running the flagship CLI at
+               one worker thread on the three 2048x32x48 orbits, against one
+               process at one worker: the union of their PNGs decodes to the
+               same pixels, the ranks' .proc extrema JSONs are equal (and
+               equal the one process's); written panels/s of 1 and 2 ranks
+               (one card: informative only).
+               (d) entry()'s forward on the card against the CPU's: bounds
+               bit for bit, index cells and tile pixels within one bin on a
+               provable bin boundary.
+               (e) with two or more cards, dryrun_multichip(2, "nccl"): each
+               rank on cuda:{rank}; with one card the line says
+               nccl_two_cards=not_run.
 6. audio    -- the same 600 s of audio as a 16-bit WAV (a 50 Hz - 15 kHz
                chirp, two tones, noise at -30 dB) through
                ``python -m configurable_spectrograms_torch.cli.audio``'s main on
@@ -789,8 +816,9 @@ def run_e2e(records: dict, small=SHAPES[1], big=SHAPES[0]) -> None:
                 panels_per_s=f"{n_panels / secs_b:.2f}", note="process_orbit incl. decode, composite, PNG")
         require(have_pil, "PIL does not import: the batch phase writes PNGs")
         run_generic(records, mapping, tmp)
-        run_batch(records, mapping, root, os.path.join(tmp, "cusp.tsv"), tmp)
+        runs = run_batch(records, mapping, root, os.path.join(tmp, "cusp.tsv"), tmp)
         os.environ.pop("CST_RENDER_BACKEND", None)
+        run_parallel(records, mapping, root, os.path.join(tmp, "cusp.tsv"), tmp, runs["device"])
 
 
 def add_launches(records: dict, counts: dict) -> None:
@@ -1011,11 +1039,12 @@ def batch_cwd(path: str, root: str, cusp: str) -> str:
     return path
 
 
-def run_flagship(cwd: str, backend: str) -> dict:
-    """The port's flagless flagship CLI (``main()``, its defaults) in *cwd* on *backend*; what it ran and wrote."""
-    import signal
+def run_flagship(cwd: str, backend: str, workers: int | None = None) -> dict:
+    """The port's flagless flagship CLI (``main()``, its defaults) in *cwd* on *backend*; what it ran and wrote.
 
-    import torch
+    *workers*, where given, replaces the CLI's 4 worker threads.
+    """
+    import signal
 
     from configurable_spectrograms_torch.cli import batch_multi_plot_FAST_spectrograms as flagship
     from configurable_spectrograms_torch.data import cdf_utils
@@ -1027,6 +1056,8 @@ def run_flagship(cwd: str, backend: str) -> dict:
 
     class Recorded(FastBatchConfig):  # main() drops the driver's results; keep them
         def run(self):
+            if workers is not None:
+                self.max_workers = workers
             results.extend(super().run())
             return results
 
@@ -1049,7 +1080,7 @@ def run_flagship(cwd: str, backend: str) -> dict:
     try:
         t0 = time.perf_counter()
         rc = call_main(flagship.main, [])
-        torch.cuda.synchronize()
+        sync()
         seconds = time.perf_counter() - t0
     finally:
         flagship.FastBatchConfig, batch_directory.compute_global_extrema = FastBatchConfig, real_extrema
@@ -1060,9 +1091,10 @@ def run_flagship(cwd: str, backend: str) -> dict:
             signal.signal(s, h)
     pngs = {os.path.relpath(p, cwd): os.stat(p).st_mtime_ns
             for p in glob.glob(os.path.join(cwd, "FAST_plots", "**", "*.png"), recursive=True)}
-    with open(os.path.join(cwd, "batch_multi_plot_FAST_progress.json")) as f:
+    # Under a process group of several ranks each rank keeps its own state files (``.proc{rank}``).
+    with open(os.path.join(cwd, batch_directory._per_process_path("batch_multi_plot_FAST_progress.json"))) as f:
         progress = json.load(f)
-    extrema_path = os.path.join(cwd, "FAST_calculated_extrema.json")
+    extrema_path = os.path.join(cwd, batch_directory._per_process_path("FAST_calculated_extrema.json"))
     extrema = None
     if os.path.exists(extrema_path):
         with open(extrema_path) as f:
@@ -1097,8 +1129,11 @@ def png_bins_apart(a_path: str, b_path: str, colormap: str) -> int:
     return int(diff.sum())
 
 
-def run_batch(records: dict, mapping: dict, root: str, cusp: str, tmp: str) -> None:
-    """The flagless flagship batch CLI over the archive (device, resume, host, device with the back end off), then the single FAST CLI."""
+def run_batch(records: dict, mapping: dict, root: str, cusp: str, tmp: str) -> dict:
+    """The flagless flagship batch CLI over the archive (device, resume, host, device with the back end off), then the single FAST CLI.
+
+    Returns the three batch runs, by name.
+    """
     import torch
 
     from configurable_spectrograms_torch.cli import single_plot_FAST_spectrograms as cli_fast
@@ -1211,6 +1246,264 @@ def run_batch(records: dict, mapping: dict, root: str, cusp: str, tmp: str) -> N
     require(launches["collapse"] > 0, f"the single FAST CLI launched no collapse kernel: {launches}")
     add_launches(records, launches)
     os.environ.pop("CST_RENDER_BACKEND", None)
+    return runs
+
+
+PARALLEL_FILES = 8  # cubes of the [parallel] extrema check, at PARALLEL_SHAPE: 2.15 GB, 1.07 GB a rank
+PARALLEL_SHAPE = SHAPES[0]
+#: Their t_valids at T = 8192 (scaled to another T); 3001 leaves no real row in the second time half.
+PARALLEL_T_VALIDS = (8192, 8192, 5000, 8192, 3001, 8192, 8192, 7777)
+
+
+def sync() -> None:
+    """Wait for the card, where there is one (a spawned rank of a rehearsal on the CPU has none)."""
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def write_parallel_cubes(path: str, shape=SHAPES[0], seed: int = 7) -> np.ndarray:
+    """The [parallel] extrema batch, (PARALLEL_FILES, T, A, E) float32 with NaN and negative cells, as a .npy at *path*.
+
+    Written file by file into a memory-mapped .npy, so each rank can read
+    only its block.  Returns the t_valids.
+    """
+    T, A, E = shape
+    out = np.lib.format.open_memmap(path, mode="w+", dtype=np.float32, shape=(PARALLEL_FILES, T, A, E))
+    rng = np.random.default_rng(seed)
+    for i in range(PARALLEL_FILES):
+        x = rng.random((T, A, E), dtype=np.float32)
+        cube = x * np.float32(50.0) - np.float32(0.5)
+        cube[x < 0.02] = np.nan
+        out[i] = cube
+    out.flush()
+    del out
+    return np.array([t * T // 8192 for t in PARALLEL_T_VALIDS], np.int32)
+
+
+def _parallel_extrema_rank(rank: int, path: str, t_valids: np.ndarray) -> dict:
+    """[parallel] (a), one rank: sharded_extrema_stats over a ('data',) mesh of 2 and a ('data', 'time') mesh of 1x2."""
+    from configurable_spectrograms_torch.ops import kernels as K
+    from configurable_spectrograms_torch.parallel import make_mesh, sharded_extrema_stats
+    from configurable_spectrograms_torch.utils.torch_setup import get_device
+
+    cubes = np.load(path, mmap_mode="r")  # this rank reads only its block
+    out = {"device": str(get_device())}
+    for name, mesh in (("data2", make_mesh(2)), ("data1xtime2", make_mesh(2, ("data", "time"), (1, 2)))):
+        K.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        counts, hist = sharded_extrema_stats(cubes, t_valids, mesh)
+        sync()
+        out[name] = {"counts": counts, "hist": hist, "seconds": time.perf_counter() - t0,
+                     "launches": dict(K.LAUNCHES)}
+    return out
+
+
+def _parallel_flagship_rank(rank: int, cwd: str) -> dict:
+    """[parallel] (c), one rank: the flagship CLI at one worker thread in *cwd* (each rank plots orbits rank::2)."""
+    from configurable_spectrograms_torch.ops import extrema_ops
+    from configurable_spectrograms_torch.ops import kernels as K
+    from configurable_spectrograms_torch.render import dispatch
+    from configurable_spectrograms_torch.utils.torch_setup import get_device
+
+    K.reset_launches()
+    run = run_flagship(cwd, "device", workers=1)
+    return {"run": run, "launches": dict(K.LAUNCHES), "device": str(get_device()),
+            "render_device": dispatch.LAST_DISPATCH["device"], "extrema_device": extrema_ops.LAST_DISPATCH["device"]}
+
+
+def decoded_pixels_equal(a_path: str, b_path: str) -> bool:
+    from PIL import Image
+
+    with Image.open(a_path) as a, Image.open(b_path) as b:
+        return np.array_equal(np.asarray(a.convert("RGB")), np.asarray(b.convert("RGB")))
+
+
+def run_parallel(records: dict, mapping: dict, root: str, cusp: str, tmp: str, ungrouped: dict) -> None:
+    """[parallel]: the collective extrema in two ranks, the flagship under one NCCL rank and in two ranks, entry(), NCCL on two cards."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from configurable_spectrograms_torch.entry import dryrun_multichip, spawn_ranks
+    from configurable_spectrograms_torch.ops import extrema_ops
+    from configurable_spectrograms_torch.ops import kernels as K
+    from configurable_spectrograms_torch.ops.extrema_ops import batched_file_stats
+    from configurable_spectrograms_torch.parallel.mesh import init_distributed, shutdown_distributed
+    from configurable_spectrograms_torch.render import dispatch
+    from configurable_spectrograms_torch.utils.torch_setup import get_device
+
+    device = get_device()  # cuda:0 (a CPU rehearsal: cpu)
+    # (a) Two Gloo ranks on the one card: sharded_extrema_stats against one process's batched_file_stats.
+    path = os.path.join(tmp, "parallel_cubes.npy")
+    t0 = time.perf_counter()
+    t_valids = write_parallel_cubes(path, PARALLEL_SHAPE)
+    cubes = np.load(path, mmap_mode="r")
+    ref = batched_file_stats([cubes[i, : t_valids[i]] for i in range(PARALLEL_FILES)])
+    torch.cuda.synchronize()
+    ref_counts = np.stack([r["counts"] for r in ref])
+    ref_hist = np.sum([r["hist"] for r in ref], axis=0).astype(np.int64)
+    say("parallel", part="a", step="inputs", files=PARALLEL_FILES, shape="x".join(map(str, cubes.shape[1:])),
+        gbytes=f"{cubes.nbytes / 1e9:.2f}", t_valids=",".join(map(str, t_valids)),
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    del cubes
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_parallel_extrema_rank, 2, "gloo", args=(path, t_valids), local_ranks=[0, 0], timeout=600)
+    wall = time.perf_counter() - t0
+    os.remove(path)
+    for mesh in ("data2", "data1xtime2"):
+        for r, out in enumerate(ranks):
+            got = out[mesh]
+            require(np.array_equal(got["counts"], ref_counts), f"(a) {mesh} rank {r}: counts differ from batched_file_stats")
+            require(np.array_equal(got["hist"], ref_hist), f"(a) {mesh} rank {r}: histogram differs from batched_file_stats")
+            require(got["launches"]["collapse"] > 0, f"(a) {mesh} rank {r} launched no collapse kernel: {got['launches']}")
+            require(out["device"] == str(device), f"(a) rank {r} computed on {out['device']}")
+            add_launches(records, got["launches"])
+        say("parallel", part="a", mesh=mesh, ranks=2, backend="gloo", stats="bit-equal to batched_file_stats",
+            seconds=",".join(f"{o[mesh]['seconds']:.3f}" for o in ranks),
+            launches=",".join(json.dumps(o[mesh]["launches"]).replace(" ", "") for o in ranks),
+            positives=int(ref_hist.sum()))
+    say("parallel", part="a", spawn_and_run_s=f"{wall:.2f}")
+
+    # (b) One NCCL rank through init_distributed() with torchrun's variables: the flagship as run ungrouped.
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torchrun = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in torchrun}
+    os.environ.update(torchrun)
+    cwd = batch_cwd(os.path.join(tmp, "parallel_nccl"), root, cusp)
+    try:
+        init_distributed()
+        backend = dist.get_backend()
+        require(backend == ("nccl" if device.type == "cuda" else "gloo"), f"(b) backend {backend}")
+        one = torch.ones((1,), device=device)
+        dist.all_reduce(one)
+        K.reset_launches()
+        dispatch.LAST_DISPATCH["device"] = extrema_ops.LAST_DISPATCH["device"] = None
+        run = run_flagship(cwd, "device")
+        launches = dict(K.LAUNCHES)
+    finally:
+        shutdown_distributed()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    say("parallel", part="b", ranks=1, backend=backend, archive_s=f"{run['seconds']:.2f}", pngs=len(run["pngs"]),
+        render_device=dispatch.LAST_DISPATCH["device"], extrema_device=extrema_ops.LAST_DISPATCH["device"],
+        launches=json.dumps(launches).replace(" ", ""))
+    require(run["rc"] == 0 and all(r["status"] == "ok" for r in run["results"]), "(b) the one-rank flagship failed")
+    require(sorted(run["pngs"]) == sorted(ungrouped["pngs"]), "(b) the one-rank flagship wrote another file list")
+    require(run["extrema"] == ungrouped["extrema"], "(b) the one-rank flagship's extrema JSON differs")
+    require(dispatch.LAST_DISPATCH["device"] == extrema_ops.LAST_DISPATCH["device"] == str(device),
+            f"(b) the one-rank flagship did not run on {device}")
+    require(min(launches["collapse"], launches["fused_quantize"]) > 0, f"(b) a kernel never launched: {launches}")
+    add_launches(records, launches)
+
+    # (c) Two Gloo ranks on the one card, the flagship at one worker on the three small orbits.
+    small = sorted(mapping)[:3]
+    data = os.path.join(tmp, "parallel_small_data")
+    for orbit in small:
+        for f in mapping[orbit].values():
+            os.makedirs(os.path.join(data, os.path.dirname(os.path.relpath(f, root))), exist_ok=True)
+            os.symlink(f, os.path.join(data, os.path.relpath(f, root)))
+    one = run_flagship(batch_cwd(os.path.join(tmp, "parallel_one"), data, cusp), "device", workers=1)
+    require(one["rc"] == 0 and all(r["status"] == "ok" for r in one["results"]), "(c) the one-process flagship failed")
+    cwd2 = batch_cwd(os.path.join(tmp, "parallel_two"), data, cusp)
+    t0 = time.perf_counter()
+    two = spawn_ranks(_parallel_flagship_rank, 2, "gloo", args=(cwd2,), local_ranks=[0, 0], timeout=600)
+    wall = time.perf_counter() - t0
+    union = {}
+    for r, out in enumerate(two):
+        run = out["run"]
+        require(run["rc"] == 0 and all(x["status"] == "ok" for x in run["results"]), f"(c) rank {r} failed")
+        require(out["render_device"] == out["extrema_device"] == out["device"] == str(device),
+                f"(c) rank {r} ran on {out['render_device']} / {out['extrema_device']}")
+        # At one worker the raw job of an orbit writes the given-named files too and the given job finds
+        # them (docs/parity.md:42-46), so only the collapse kernel renders.
+        require(out["launches"]["collapse"] > 0, f"(c) rank {r}: the collapse kernel never launched: {out['launches']}")
+        add_launches(records, out["launches"])
+        union.update(run["pngs"])
+    require(sorted(union) == sorted(one["pngs"]), "(c) the two ranks wrote another file list than one process")
+    for rel in one["pngs"]:
+        require(decoded_pixels_equal(os.path.join(tmp, "parallel_one", rel), os.path.join(cwd2, rel)),
+                f"(c) {rel}: the two-rank PNG decodes to other pixels")
+    require(two[0]["run"]["extrema"] == two[1]["run"]["extrema"] == one["extrema"],
+            "(c) the ranks' .proc extrema JSONs differ (from each other or from one process)")
+    rank_s = max(o["run"]["seconds"] for o in two)
+    say("parallel", part="c", orbits=len(small), pngs=len(union), pixels="identical", extrema_json="proc0 == proc1",
+        one_rank_s=f"{one['seconds']:.2f}", two_rank_s=f"{rank_s:.2f}", two_rank_spawn_s=f"{wall:.2f}",
+        one_rank_extrema_s=f"{one['extrema_s']:.2f}",
+        two_rank_extrema_s=",".join(f"{o['run']['extrema_s']:.2f}" for o in two),
+        two_rank_each_s=",".join(f"{o['run']['seconds']:.2f}" for o in two),
+        one_rank_panels_per_s=f"{PANELS_PER_FIGURE * len(one['pngs']) / one['seconds']:.2f}",
+        two_rank_panels_per_s=f"{PANELS_PER_FIGURE * len(union) / rank_s:.2f}",
+        note="one card, informative only", launches=",".join(json.dumps(o["launches"]).replace(" ", "") for o in two))
+
+    # (d) entry()'s forward on the card against the same forward on the CPU.
+    run_entry(records)
+
+    # (e) NCCL with two ranks on two cards.
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        t0 = time.perf_counter()
+        recs = dryrun_multichip(2, "nccl")
+        require([r["device"] for r in recs] == ["cuda:0", "cuda:1"], f"(e) devices {recs}")
+        say("parallel", part="e", nccl_two_cards="ok", devices=n_cards, seconds=f"{time.perf_counter() - t0:.2f}",
+            ranks=json.dumps(recs).replace(" ", ""))
+    else:
+        say("parallel", part="e", nccl_two_cards="not_run", devices=n_cards)
+
+
+def run_entry(records: dict) -> None:
+    """[parallel] (d): ``entry()``'s forward on the card against the CPU's, to the parity contract."""
+    import torch
+
+    from configurable_spectrograms_torch.entry import T_ENTRY, entry
+    from configurable_spectrograms_torch.ops import kernels as K
+    from configurable_spectrograms_torch.ops._colormap_data import colormap_lut
+    from configurable_spectrograms_torch.ops.spectrogram import RenderSpec, collapse_cube, quantize_matrix
+    from configurable_spectrograms_torch.render.host_quantize import host_collapse
+    from configurable_spectrograms_torch.utils.torch_setup import get_device
+
+    fn, args = entry()
+    require(all(a.device == get_device() for a in args), "(d) entry()'s arguments are not on the port's device")
+    K.reset_launches()
+    rgba, vmin, vmax = (x.cpu().numpy() for x in fn(*args))
+    launches = dict(K.LAUNCHES)
+    fn_cpu, args_cpu = entry(torch.device("cpu"))
+    rgba_h, vmin_h, vmax_h = (x.numpy() for x in fn_cpu(*args_cpu))
+    require(np.array_equal(vmin, vmin_h) and np.array_equal(vmax, vmax_h),
+            f"(d) bounds card {vmin!r}, {vmax!r} vs cpu {vmin_h!r}, {vmax_h!r}")
+
+    def index_matrix(a):  # the forward's colormap indices, before the resample
+        cube, mask, energy, e_valid, _, z_bounds, _ = a
+        d = cube.device
+        one = [torch.full((1,), v, dtype=torch.int32, device=d) for v in (T_ENTRY, 0, T_ENTRY)]
+        q = quantize_matrix(collapse_cube(cube, mask, T_ENTRY)[None], energy[None], e_valid[None], *one,
+                            z_bounds[None], RenderSpec(8, 8, "log", "log"))
+        return q["idx"][0].cpu().numpy().astype(np.int32)
+
+    diff = np.abs(index_matrix(args) - index_matrix(args_cpu))
+    require(int(diff.max()) <= 1, f"(d) index cells {int(diff.max())} bins apart")
+    on_edge = boundary_mask(host_collapse(args_cpu[0].numpy(), args_cpu[1].numpy()), float(vmin_h), float(vmax_h),
+                            "log", diff > 0)
+    require(int(on_edge.sum()) == int((diff > 0).sum()), "(d) index cells one bin apart away from a bin boundary")
+    lut = colormap_lut("inferno").astype(np.int64)
+    code = {tuple(c): i for i, c in enumerate(lut)}
+    px = (rgba != rgba_h).any(axis=-1)
+    require(all(abs(code.get(tuple(a), -9) - code.get(tuple(b), -99)) == 1
+                for a, b in zip(rgba[px].astype(np.int64), rgba_h[px].astype(np.int64))),
+            "(d) tile pixels differ by more than one colormap entry")
+    require(launches["collapse"] > 0, f"(d) the forward launched no collapse kernel: {launches}")
+    add_launches(records, launches)
+    say("parallel", part="d", entry="forward", shape="x".join(map(str, rgba.shape)), vmin=float(vmin),
+        vmax=float(vmax), bounds="bit-exact", cells=diff.size, cells_one_bin_apart=int((diff > 0).sum()),
+        pixels_one_bin_apart=int(px.sum()), launches=json.dumps(launches).replace(" ", ""))
 
 
 #: The render back end's switches one at a time, for --backend-switches.

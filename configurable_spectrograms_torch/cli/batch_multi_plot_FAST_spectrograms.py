@@ -11,6 +11,18 @@ combination with its matched colormap, a 99th-percentile extrema
 pre-pass, and existing plots skipped
 (reference batch_multi_plot_FAST_spectrograms.py:58-112).
 ``CST_BATCH_SCHEDULE`` picks ``orbit-major`` (default) or ``combo-major``.
+
+On several GPUs, start one rank per card::
+
+    torchrun --nproc-per-node N -m configurable_spectrograms_torch.cli.batch_multi_plot_FAST_spectrograms
+
+Under torchrun (``WORLD_SIZE`` > 1) ``main`` joins the process group
+(:func:`..parallel.mesh.init_distributed`: NCCL, rank ``r`` on
+``cuda:{LOCAL_RANK}``) before the driver and leaves it at the end.  Rank
+``r`` of ``n`` plots orbits ``r::n`` of the sorted archive and keeps its
+own state files, the progress and extrema JSONs suffixed ``.proc{r}``; each
+rank runs the extrema pre-pass over the whole archive, as every host of
+the JAX package does.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ from configurable_spectrograms_torch.fast.plotting import (
     FAST_plot_pitch_angle_grid,
 )
 from configurable_spectrograms_torch.fast.process_orbit import FAST_process_single_orbit
+from configurable_spectrograms_torch.parallel.mesh import init_distributed, process_group_ready, shutdown_distributed
 from configurable_spectrograms_torch.utils.config import FastBatchConfig
 from configurable_spectrograms_torch.utils.logging import (
     get_logfile_path,
@@ -80,11 +93,17 @@ def main() -> None:
     # batch_multi_plot_FAST_spectrograms.py:79-103), so the scheduling
     # choice rides an env knob instead of a new argument.
     schedule = os.environ.get("CST_BATCH_SCHEDULE") or "orbit-major"
+    grouped = int(os.environ.get("WORLD_SIZE", "1")) > 1 and not process_group_ready()
+    if grouped:
+        init_distributed()
     try:
         FastBatchConfig(schedule=schedule).run()
     except KeyboardInterrupt:
         log_exception("[INTERRUPT] Batch plotting aborted by user.", level="message")
         raise
+    finally:
+        if grouped:
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -274,12 +274,10 @@ def _extrema_for_combo(
 
 
 def _process_shard_info() -> tuple[int, int]:
-    """``(rank, world_size)`` from ``torch.distributed`` when it is initialised, else ``(0, 1)``."""
-    import torch.distributed as dist
+    """``(rank, world_size)``: :func:`..parallel.mesh.process_shard_info` (the group's, once one exists)."""
+    from configurable_spectrograms_torch.parallel.mesh import process_shard_info
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    return process_shard_info()
 
 
 def _shard_orbits_across_processes(orbits_sorted: list[int]) -> list[int]:

@@ -22,6 +22,10 @@ HIST_BINS = 4096
 LOG_LO = -12.0
 LOG_HI = 12.0
 
+#: The device of the last device-backend :func:`batched_file_stats` launch
+#: (``str(device)``); ``None`` before one.
+LAST_DISPATCH: dict[str, str | None] = {"device": None}
+
 
 def file_extrema_stats_lanes(cubes: torch.Tensor, t_valid: torch.Tensor) -> dict[str, torch.Tensor]:
     """Extrema summaries of L (T, A, E) cubes, stacked as (L, T, A, E).
@@ -117,6 +121,7 @@ def batched_file_stats(cubes: list[np.ndarray]) -> list[dict[str, np.ndarray]]:
     batch = stack_cubes(cubes, Tm, Am, Em, device, cached=False)  # each file is read once
     t_valid = torch.tensor([c.shape[0] for c in cubes], dtype=torch.int32, device=device)
     out = file_extrema_stats_lanes(batch, t_valid)
+    LAST_DISPATCH["device"] = str(device)
     counts = out["counts"].cpu().numpy()
     hist = out["hist"].cpu().numpy()
     return [{"counts": counts[i, : c.shape[2]], "hist": hist[i]} for i, c in enumerate(cubes)]

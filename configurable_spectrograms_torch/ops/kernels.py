@@ -25,7 +25,10 @@ Counterparts of ``configurable_spectrograms_tpu/ops/pallas_kernels.py``:
   4x the plain version's.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
-launches its CUDA kernel for tensors on a CUDA device -- or raises.
+launches its CUDA kernel for tensors on a CUDA device -- or raises.  A
+launch runs with its tensors' device made current
+(``torch.cuda.device``): CUDA's current device belongs to the host thread,
+and a worker thread starts on device 0 whichever card its rank owns.
 Nothing falls back from the kernel to the plain version.  A launch adds one
 to :data:`LAUNCHES`, so a run can show that its main path went through the
 kernels.
@@ -253,8 +256,9 @@ def collapse_lanes(cubes: torch.Tensor, u_idx: torch.Tensor, masks: torch.Tensor
     if L == 0:
         return out
     ptrs = _cuda_args(cubes, u_idx, masks, t_valid, out)
-    stream = torch.cuda.current_stream(cubes.device).cuda_stream
-    _raise_on(lib.cst_collapse(*ptrs, L, T, A, E, stream), "cst_collapse")
+    with torch.cuda.device(cubes.device):
+        stream = torch.cuda.current_stream(cubes.device).cuda_stream
+        _raise_on(lib.cst_collapse(*ptrs, L, T, A, E, stream), "cst_collapse")
     _count_launch("collapse")
     return out
 
@@ -321,10 +325,12 @@ def fused_launch(args: tuple, z_scale: str, work: torch.Tensor, out: dict[str, t
     L = args[1].shape[0]
     lte, le = L * T * E, L * E
     base = work.data_ptr()  # collapsed, then col_any, then the lane minima
-    err = load_library().cst_fused_quantize(
-        *_cuda_args(*args), 1 if z_scale == "log" else 0, base, base + 4 * lte, base + 4 * (lte + le),
-        out["idx"].data_ptr(), out["vmin"].data_ptr(), out["col_all_nan"].data_ptr(), L, T, A, E, phases,
-        torch.cuda.current_stream(cubes.device).cuda_stream)
+    lib = load_library()
+    with torch.cuda.device(cubes.device):
+        err = lib.cst_fused_quantize(
+            *_cuda_args(*args), 1 if z_scale == "log" else 0, base, base + 4 * lte, base + 4 * (lte + le),
+            out["idx"].data_ptr(), out["vmin"].data_ptr(), out["col_all_nan"].data_ptr(), L, T, A, E, phases,
+            torch.cuda.current_stream(cubes.device).cuda_stream)
     _raise_on(err, "cst_fused_quantize")
 
 
@@ -361,9 +367,10 @@ def stft_power(frames: torch.Tensor, cos_b: torch.Tensor, sin_b: torch.Tensor) -
         return out
     _cuda_args(out, cos_b, sin_b)  # one device: the frames'
     bt = stft_bases_t(cos_b, sin_b)
-    stream = torch.cuda.current_stream(frames.device).cuda_stream
-    err = lib.cst_stft_power(frames.data_ptr(), frames.stride(0), F, L, bt.data_ptr(), K, bt.shape[1],
-                             bt.shape[2], out.data_ptr(), stream)
+    with torch.cuda.device(frames.device):  # the kernel's shared-memory attribute is set on the current device
+        stream = torch.cuda.current_stream(frames.device).cuda_stream
+        err = lib.cst_stft_power(frames.data_ptr(), frames.stride(0), F, L, bt.data_ptr(), K, bt.shape[1],
+                                 bt.shape[2], out.data_ptr(), stream)
     _raise_on(err, "cst_stft_power")
     _count_launch("stft_power")
     return out

@@ -270,13 +270,17 @@ def quantize_matrix(matrix, energy, e_valid, t_valid, t_start, t_count, z_bounds
 
 
 def render_matrix(matrix, energy, e_valid, t_valid, t_start, t_count, x_map, z_bounds, lut,
-                  spec: RenderSpec, zb_e_valid=None, zb_full_time=None) -> dict:
+                  spec: RenderSpec, zb_e_valid=None, zb_full_time=None, out_h=None, out_w=None) -> dict:
     """Rasterize collapsed (L, T, E) matrices to (L, H, W, 4) RGBA tiles.
 
     ``x_map`` (L, 2) float32 maps output pixel columns to fractional
     matrix rows (``col_f = x_map[0] * px + x_map[1]``); ``lut`` (L, 256, 4)
     uint8.  Rows are in PNG order (row 0 = top), as the JAX module returns
-    them.  Scalars as in :func:`_analyze_matrix`.
+    them.  Scalars as in :func:`_analyze_matrix`.  ``out_h`` / ``out_w``
+    (L,) int, where given, are each lane's real size inside the
+    ``spec.height`` x ``spec.width`` tile, as in the JAX module: pixels at
+    or beyond them render as background, and the valid region lands at
+    rows ``[H - out_h, H)`` of the returned tile.
     """
     H, W = spec.height, spec.width
     L, T, E = matrix.shape
@@ -292,12 +296,15 @@ def render_matrix(matrix, energy, e_valid, t_valid, t_start, t_count, x_map, z_b
     x_map = x_map.float()
     col_f = x_map[:, :1] * px + x_map[:, 1:]
     x_ok = (col_f >= 0.0) & (col_f <= t_count.view(L, 1).to(torch.float32))
+    if out_w is not None:
+        x_ok = x_ok & (px < out_w.view(L, 1).to(torch.float32))
     col = torch.minimum(torch.clamp_min(col_f.to(torch.int64), 0), torch.clamp_min(t_count.view(L, 1).long() - 1, 0))
     t_idx = torch.clamp(t_start.view(L, 1).long() + col, 0, T - 1)  # (L, W)
 
     # Divide by a device tensor: a Python-scalar divisor becomes a
     # reciprocal multiply on CUDA (see _percentile_ranks).
-    py = (torch.arange(H, device=dev, dtype=torch.float32).view(1, H) + 0.5) / _f32(float(H), dev)
+    py_r = torch.arange(H, device=dev, dtype=torch.float32).view(1, H)
+    py = (py_r + 0.5) / (_f32(float(H), dev) if out_h is None else out_h.view(L, 1).to(torch.float32))
     nk = torch.clamp_min(n_kept, 1).to(torch.float32).view(L, 1)
     if spec.y_scale == "log":
         ly0 = torch.log10(torch.clamp_min(y0, 1e-37)).view(L, 1)
@@ -314,6 +321,8 @@ def render_matrix(matrix, energy, e_valid, t_valid, t_start, t_count, x_map, z_b
     lanes = torch.arange(L, device=dev).view(L, 1, 1)
     tile_idx = idx[lanes, t_idx.view(L, 1, W), e_idx.view(L, H, 1)]  # (L, H, W)
     visible = x_ok.view(L, 1, W) & ~a["empty"].view(L, 1, 1)
+    if out_h is not None:
+        visible = visible & (py_r < out_h.view(L, 1).to(torch.float32)).view(L, H, 1)
     bg = torch.tensor(spec.bg_rgba, dtype=torch.uint8, device=dev).view(1, 1, 4).expand(L, 1, 4)
     lut_ext = torch.cat([lut.to(device=dev, dtype=torch.uint8), bg], dim=1)  # (L, 257, 4)
     final_idx = torch.where(visible, tile_idx, torch.full_like(tile_idx, 256))

@@ -26,7 +26,9 @@ go up from pinned memory, because a copy from pageable memory
 synchronises the stream.
 
 Left out of the JAX pipeline on purpose: the packed-uint8 lane transfer,
-the drain soft caps, the mesh and the resident result cache.
+the drain soft caps, the mesh and the resident result cache.  A rank
+renders on its own card (one process per GPU, :mod:`..parallel.mesh`);
+:data:`LAST_DISPATCH` says which.
 """
 
 from __future__ import annotations
@@ -49,6 +51,11 @@ from configurable_spectrograms_torch.render.panel import (
     _render_group_host,
 )
 from configurable_spectrograms_torch.render.tile import make_x_map, pixel_columns
+
+#: The device the last device-backend render enqueued its buckets on
+#: (``str(device)``, e.g. ``"cuda:1"``), as ``figure.LAST_DISPATCH`` records
+#: the devices a bucket covered in the JAX package; ``None`` before one.
+LAST_DISPATCH: dict[str, str | None] = {"device": None}
 
 
 def _bucket_key(p: PanelData) -> tuple:
@@ -194,6 +201,7 @@ def enqueue_render_panels(panels: list[PanelData], tile_h: int, tile_w: int) -> 
 
     device = get_device()
     buckets = [_enqueue_group(panels, idxs, key, tile_h, tile_w, device) for key, idxs in groups.items()]
+    LAST_DISPATCH["device"] = str(device)
     return PendingRender(panels, tile_h, tile_w, results, buckets)
 
 

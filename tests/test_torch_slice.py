@@ -5,7 +5,8 @@ One small synthetic orbit (A = 16) goes through the extrema pre-pass and
 to identical pixels on the host backend and agree within one colormap bin
 on the device backend.  The golden pitch grid must come out of the port pixel
 for pixel.  And the port must import and run the slice, the audio CLI,
-the generic batch and the flagship batch CLI with ``jax`` (and ``matplotlib``)
+the generic batch, the flagship batch CLI and the collective extrema of
+``parallel`` (in a one-rank group) with ``jax`` (and ``matplotlib``)
 blocked.
 """
 
@@ -224,6 +225,29 @@ _BLOCKED_RUN = textwrap.dedent(
     from configurable_spectrograms_torch.render import text
     assert text._font_path() == text.BUNDLED_FONT
     print("FLAGSHIP", sum(len(f) for _, _, f in os.walk("FAST_plots")))
+
+    # The parallel layer and the entry points: the collective extrema in a one-rank group.
+    import socket
+    import configurable_spectrograms_torch.entry
+    import configurable_spectrograms_torch.parallel
+    from configurable_spectrograms_torch.ops.extrema_ops import batched_file_stats
+    from configurable_spectrograms_torch.parallel import make_mesh, sharded_extrema_stats
+    from configurable_spectrograms_torch.parallel.mesh import init_distributed, shutdown_distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        cubes = (np.random.default_rng(0).random((2, 16, 4, 8)) * 9).astype(np.float32)
+        counts, hist = sharded_extrema_stats(cubes, np.array([16, 11], np.int32), make_mesh(1))
+    finally:
+        shutdown_distributed()
+    ref = batched_file_stats([cubes[0], cubes[1, :11]])
+    assert (counts == np.stack([r["counts"] for r in ref])).all()
+    assert (hist == np.sum([r["hist"] for r in ref], axis=0)).all()
+    assert not any(k.split(".")[0] in ("jax", "jaxlib", "configurable_spectrograms_tpu") for k in sys.modules)
+    print("PARALLEL", int(hist.sum()))
     """
 )
 
@@ -237,3 +261,4 @@ def test_port_imports_and_runs_the_slice_with_jax_blocked(tmp_path):
     assert "PNGS 10" in proc.stdout
     assert "GENERIC 4" in proc.stdout
     assert "FLAGSHIP 10" in proc.stdout  # 4 instruments x given/raw pitch grids + 2 instrument grids
+    assert "PARALLEL " in proc.stdout and "PARALLEL 0" not in proc.stdout
