@@ -82,6 +82,40 @@ Phases, one line each, in order:
                backend: --cdf-file (the 8192x64x128 ees file), --data-folder
                with --orbit, and --instrument-file for all four instruments
                (--date needs the network and is not run).
+   gui      -- the port's front-end
+               (``cli.GUI_batch_download_plot_FAST``), after [batch] on the
+               same archive.  The Qt pages run ``run_qt()`` on the headless
+               stand-in; each action starts a spawned child (this process
+               has started CUDA), whose target is wrapped in a probe that
+               runs the real target and reports the child's launches and
+               device.  (a) Single Day, the 8192x64x128 orbit,
+               log-log-inferno, from the [batch] device tree (its
+               ./FAST_Cusp_Indices.csv): "Finished.", the child on
+               cuda:0 with collapse launches, pixels equal to the single
+               FAST CLI's --data-folder PNG.  (b) Plot, one combo
+               (log-log), percentile 99, into a fresh tree: the progress
+               label shows "log_log @ orbit ...", "Finished.", both kernels
+               launched in the child, the file list equal to the [batch]
+               device tree's log_log subset, every raw-named PNG
+               pixel-equal; the extrema JSON equal to that tree's
+               linear_linear entries under log_log names (a fresh log_log
+               pre-pass scans in linear space and caches what [batch]'s
+               first combo cached; [batch]'s log_log entries are derived
+               from them, as in the JAX package).  (c) Plot of log-log and
+               linear-log into another fresh tree, Stop at the first
+               progress line (log_log done; the child still working):
+               "Stopped.", the child gone (and off nvidia-smi's compute
+               apps) within 10 s; Plot again: "Finished.", the log_log
+               files of (b) and [batch]'s linear_log files, no *.tmp-*
+               file.  (d) ``python -m ... --tui``: Single Day,
+               pitch-angle, the 8192x64x128 ees file: exit 0, "Done.",
+               pixels equal to the single FAST CLI's --cdf-file PNG.
+               Seconds of each action: press to the child's exit and to
+               the status, and the child's boot, torch import, port
+               import, CUDA context, kernel library load, the target's
+               module import and the target (with its composite, PNG and
+               readback stage seconds).  The
+               children's launches join the kernels JSON line.
    parallel -- the parallel layer (one process per GPU, torch.distributed),
                after [batch] on the same archive; ranks are spawned
                processes (start method spawn) and report their launch
@@ -818,6 +852,7 @@ def run_e2e(records: dict, small=SHAPES[1], big=SHAPES[0]) -> None:
         run_generic(records, mapping, tmp)
         runs = run_batch(records, mapping, root, os.path.join(tmp, "cusp.tsv"), tmp)
         os.environ.pop("CST_RENDER_BACKEND", None)
+        run_gui(records, mapping, root, os.path.join(tmp, "cusp.tsv"), tmp, runs["device"])
         run_parallel(records, mapping, root, os.path.join(tmp, "cusp.tsv"), tmp, runs["device"])
 
 
@@ -1247,6 +1282,372 @@ def run_batch(records: dict, mapping: dict, root: str, cusp: str, tmp: str) -> d
     add_launches(records, launches)
     os.environ.pop("CST_RENDER_BACKEND", None)
     return runs
+
+
+#: Where a probed front-end child writes its launch counts and device (set before each press).
+GUI_PROBE_ENV = "CHIP_SMOKE_GUI_PROBE"
+GUI_MODULE = "configurable_spectrograms_torch.cli.GUI_batch_download_plot_FAST"
+GUI_TIMEOUT_S = 300  # the longest wait for one front-end action
+
+
+def _gui_probe(name: str, module: str, args: tuple, kwargs: dict) -> None:
+    """In a front-end's spawned child: the port's real target *name*; then the child's launches, device and times to a JSON file.
+
+    *module* is what the target imports first; it is imported ahead of the
+    target so that ``target_import_s`` and ``target_s`` split the two.
+    """
+    t_entry = time.time()
+    import importlib
+
+    import torch
+
+    t_torch = time.time()
+    from configurable_spectrograms_torch.cli import GUI_batch_download_plot_FAST as gui
+    from configurable_spectrograms_torch.ops import _build
+    from configurable_spectrograms_torch.ops import kernels as K
+    from configurable_spectrograms_torch.utils import timing
+    from configurable_spectrograms_torch.utils.torch_setup import get_device
+
+    t_import = time.time()
+    device = get_device()
+    torch.zeros(1, device=device)  # the child's CUDA context
+    t_context = time.time()
+    if device.type == "cuda":
+        _build.load_library()  # the kernels the parent built, from build/cst_torch/
+    t_library = time.time()
+    importlib.import_module(module)
+    t_target_import = time.time()
+    record = {"device": str(device), "entry": t_entry, "torch_import_s": t_torch - t_entry,
+              "port_import_s": t_import - t_torch, "context_s": t_context - t_import,
+              "library_s": t_library - t_context, "target_import_s": t_target_import - t_library}
+    timer = timing.ACTIVE = timing.StageTimer("gui_child")  # composite, png_encode, device_readback (summed over threads)
+    try:
+        getattr(gui, name)(*args, **kwargs)
+        sync()
+    finally:
+        record.update(target_s=time.time() - t_target_import, stages=dict(timer.totals), launches=dict(K.LAUNCHES))
+        with open(os.environ[GUI_PROBE_ENV], "w") as f:
+            json.dump(record, f)
+
+
+def _gui_probe_single(*args, **kwargs) -> None:
+    _gui_probe("single_in_process", "configurable_spectrograms_torch.cli.single_plot_FAST_spectrograms", args, kwargs)
+
+
+def _gui_probe_plot(*args, **kwargs) -> None:
+    _gui_probe("plot_in_process", "configurable_spectrograms_torch.fast.batch_directory", args, kwargs)
+
+
+def qt_session(hook) -> None:
+    """The port's Qt front-end (``run_qt()``) on its headless stand-in, driven by ``hook(app, qt)``; re-raises what the hook raised."""
+    from configurable_spectrograms_torch.cli import GUI_batch_download_plot_FAST as gui
+    from configurable_spectrograms_torch.gui import headless_qt as qt
+
+    errors: list[BaseException] = []
+
+    def wrapped(app):
+        try:
+            hook(app, qt)
+        except BaseException as exc:  # raised again after exec() returns
+            errors.append(exc)
+        finally:
+            app.quit()
+
+    qt.install(force=True)  # the stand-in even where a real PySide6 is installed: there is no display
+    qt.QApplication.exec_hook = wrapped
+    try:
+        require(gui.run_qt() == 0, "[gui] run_qt() exited non-zero")
+    finally:
+        qt.QApplication.exec_hook = None
+        qt.QApplication._instance = None
+        qt.uninstall()
+    if errors:
+        raise errors[0]
+
+
+def qt_page(app, qt, index: int) -> tuple[dict, dict, object, object]:
+    """Page *index*: its fields by label, its buttons by text, its status and progress labels."""
+    page = app.topLevelWidgets()[0].findChildren(qt.QStackedWidget)[0].widget(index)
+    fields: dict = {}
+
+    def walk(layout):
+        for item in layout._items:
+            if isinstance(item, qt._BoxLayout):
+                row = item._items
+                if len(row) >= 2 and isinstance(row[0], qt.QLabel) and isinstance(row[1], qt.QLineEdit):
+                    fields[row[0].text()] = row[1]
+                else:
+                    walk(item)
+
+    walk(page.layout())
+    labels = page.findChildren(qt.QLabel)
+    return fields, {b.text(): b for b in page.findChildren(qt.QPushButton)}, labels[-2], labels[-1]
+
+
+def qt_wait(app, predicate, what: str, timeout: float = GUI_TIMEOUT_S) -> None:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        app.processEvents()
+        if predicate():
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"[gui] timed out after {timeout} s waiting for {what}")
+
+
+def qt_press(app, qt, index: int, values: dict, button: str, probe: str, until=lambda: True) -> dict:
+    """Fill page *index*, press *button*, wait until its child has ended, the status left "Running..." and *until*().
+
+    Returns the status and the seconds: press to the child's exit, press
+    to the status change, and the child's probe record (None if it wrote
+    none).
+    """
+    import multiprocessing
+
+    fields, buttons, status, _ = qt_page(app, qt, index)
+    for name, value in values.items():
+        fields[name].type_text(value)
+    os.environ[GUI_PROBE_ENV] = probe
+    before = set(multiprocessing.active_children())
+    t_wall, t0 = time.time(), time.perf_counter()
+    buttons[button].click()
+    require(status.text() == "Running...", f"[gui] {button}: status {status.text()!r} after the press")
+    (child,) = [p for p in multiprocessing.active_children() if p not in before]
+    seen = {}
+
+    def ended():
+        now = time.perf_counter()
+        if "exit" not in seen and not child.is_alive():
+            seen["exit"] = now - t0
+        if "status" not in seen and status.text() != "Running...":
+            seen["status"] = now - t0
+        return len(seen) == 2 and until()
+
+    qt_wait(app, ended, f"{button} to end")
+    record = None
+    if os.path.exists(probe):
+        with open(probe) as f:
+            record = json.load(f)
+        record["boot_s"] = record["entry"] - t_wall
+    return {"status": status.text(), "exit_s": seen["exit"], "status_s": seen["status"], "child": record,
+            "exitcode": child.exitcode}
+
+
+def compute_app_pids() -> list[int]:
+    """The pids nvidia-smi lists as holding a CUDA context (it may list none inside a container)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return [int(x) for x in out.split() if x.isdigit()]
+
+
+def pngs_under(path: str, base: str) -> list[str]:
+    return sorted(os.path.relpath(p, base) for p in glob.glob(os.path.join(path, "**", "*.png"), recursive=True))
+
+
+def combo_subset(d: dict, combo: str) -> dict:
+    """The entries of an extrema JSON that belong to one scale combo (``log_log``: its cursor and each instrument's)."""
+    return {k: v for k, v in d.items() if f"_{combo}_" in f"_{k}"}
+
+
+def say_action(check: str, run: dict, **fields) -> None:
+    child = run["child"] or {}
+    say("gui", check=check, status=repr(run["status"]), exitcode=run["exitcode"],
+        press_to_child_exit_s=f"{run['exit_s']:.2f}", press_to_status_s=f"{run['status_s']:.2f}",
+        **({"child_boot_s": f"{child['boot_s']:.2f}", "child_torch_import_s": f"{child['torch_import_s']:.2f}",
+            "child_port_import_s": f"{child['port_import_s']:.2f}", "child_context_s": f"{child['context_s']:.2f}",
+            "child_library_s": f"{child['library_s']:.2f}",
+            "child_target_import_s": f"{child['target_import_s']:.2f}", "child_target_s": f"{child['target_s']:.2f}",
+            "child_stage_s": ",".join(f"{k}:{v:.2f}" for k, v in sorted(child["stages"].items())),
+            "child_device": child["device"],
+            "child_launches": json.dumps(child["launches"]).replace(" ", "")} if child else {}),
+        **fields)
+
+
+def run_gui(records: dict, mapping: dict, root: str, cusp: str, tmp: str, device_run: dict) -> None:
+    """[gui]: the port's front-end with its actions in spawned children; (a) Single Day, (b) Plot, (c) Stop and resume, (d) --tui.
+
+    Runs after [batch] and holds the front-end's outputs against what
+    [batch] wrote in ``tmp/batch_device`` (*device_run*): its single-figure
+    PNGs and its flagship tree.  The Qt actions run ``run_qt()`` on the
+    headless stand-in, with the page's target swapped for a probe that
+    runs the real target in the child and reports the child's launches.
+    """
+    import multiprocessing
+
+    import torch
+
+    from configurable_spectrograms_torch.cli import GUI_batch_download_plot_FAST as gui
+    from configurable_spectrograms_torch.utils.torch_setup import get_device
+
+    on_card = torch.cuda.is_available()
+    want_device = str(get_device())
+    big = max(mapping)
+    batch_tree = os.path.join(tmp, "batch_device")
+    batch_pngs = sorted(device_run["pngs"])
+    with open(os.path.join(batch_tree, "FAST_calculated_extrema.json")) as f:
+        batch_extrema = json.load(f)
+    here = os.getcwd()
+    saved = {k: os.environ.get(k) for k in ("CST_RENDER_BACKEND", GUI_PROBE_ENV)}
+    targets = (gui.single_in_process, gui.plot_in_process)
+    os.environ["CST_RENDER_BACKEND"] = "device"
+    gui.single_in_process, gui.plot_in_process = _gui_probe_single, _gui_probe_plot
+    t_phase = time.perf_counter()
+    try:
+        # (a) Single Day: folder + orbit, against the single FAST CLI's --data-folder figure from [batch].
+        os.chdir(batch_tree)  # ./FAST_Cusp_Indices.csv, as for the single FAST CLI
+        out = os.path.join(tmp, "gui_single_day.png")
+        runs = {}
+
+        def single_day(app, qt):
+            runs["a"] = qt_press(app, qt, 2, {"Data folder": root, "Orbit": str(big), "Output PNG": out,
+                                              "Style y-z[-cmap]": "log-log-inferno"}, "Render",
+                                 os.path.join(tmp, "gui_probe_a.json"))
+
+        qt_session(single_day)
+        a = runs["a"]
+        same = a["child"] is not None and os.path.exists(out) and decoded_pixels_equal(
+            out, os.path.join(tmp, "single_fast_data-folder.png"))
+        say_action("a_single_day", a, orbit=big, pixels_equal_single_cli=same)
+        require(a["status"] == "Finished.", f"[gui] (a) Single Day ended {a['status']!r}")
+        require(a["child"]["device"] == want_device, f"[gui] (a) child ran on {a['child']['device']}")
+        require(a["child"]["launches"]["collapse"] > 0, f"[gui] (a) the child launched no collapse: {a['child']}")
+        require(same, "[gui] (a) the Single Day PNG differs from the single FAST CLI's")
+        add_launches(records, a["child"]["launches"])
+
+        # (b) Plot, one combo, into a fresh tree: the [batch] device tree's log_log subset.
+        plot_cwd = batch_cwd(os.path.join(tmp, "gui_plot"), root, cusp)
+        os.chdir(plot_cwd)  # the progress and extrema JSONs land here
+        labels = []
+
+        def plot(app, qt):
+            progress = qt_page(app, qt, 1)[3]
+            runs["b"] = qt_press(app, qt, 1, {"Data folder": root, "Output folder": os.path.join(plot_cwd, "FAST_plots"),
+                                              "Percentile": "99", "Scale combos": "log-log"}, "Plot",
+                                 os.path.join(tmp, "gui_probe_b.json"),
+                                 until=lambda: "log_log @ orbit" in progress.text())
+            labels.append(progress.text())
+
+        qt_session(plot)
+        b = runs["b"]
+        got = pngs_under(os.path.join(plot_cwd, "FAST_plots"), plot_cwd)
+        want = [p for p in batch_pngs if "_y-log_z-log_" in p]
+        with open(os.path.join(plot_cwd, "FAST_calculated_extrema.json")) as f:
+            extrema = json.load(f)
+        raw = [p for p in got if "_raw-" in p]
+        raw_equal = sum(decoded_pixels_equal(os.path.join(plot_cwd, p), os.path.join(batch_tree, p)) for p in raw)
+        say_action("b_plot", b, progress=repr(labels[0]), pngs=len(got), batch_log_log_pngs=len(want),
+                   extrema_keys=len(extrema), raw_pngs=len(raw), raw_pixels_equal=raw_equal)
+        require(b["status"] == "Finished.", f"[gui] (b) Plot ended {b['status']!r}")
+        require(b["child"]["device"] == want_device, f"[gui] (b) child ran on {b['child']['device']}")
+        require(min(b["child"]["launches"]["collapse"], b["child"]["launches"]["fused_quantize"]) > 0,
+                f"[gui] (b) the child did not launch both kernels: {b['child']['launches']}")
+        require(got == want, f"[gui] (b) wrote another file list than [batch]'s log_log subset ({len(got)} vs {len(want)})")
+        # A fresh log_log pre-pass scans in linear space and keeps what [batch]'s first combo
+        # (linear_linear) scanned; [batch] derived its log_log entries from those (JAX semantics).
+        require(extrema == {k.replace("linear_linear", "log_log"): v
+                            for k, v in combo_subset(batch_extrema, "linear_linear").items()},
+                "[gui] (b) the extrema JSON differs from the [batch] tree's linear_linear scan")
+        require(raw and raw_equal == len(raw), f"[gui] (b) {len(raw) - raw_equal} raw-named PNGs differ from [batch]'s")
+        add_launches(records, b["child"]["launches"])
+
+        # (c) Stop after the first progress line, then Plot again: it resumes and ends with the whole tree.
+        # Two combos, log_log first: the progress JSON is first written when a combo drains, so the
+        # stop lands while the child works on linear_log.
+        stop_cwd = batch_cwd(os.path.join(tmp, "gui_stop"), root, cusp)
+        os.chdir(stop_cwd)
+        stop = {}
+
+        def stop_and_resume(app, qt):
+            fields, buttons, status, progress = qt_page(app, qt, 1)
+            values = {"Data folder": root, "Output folder": os.path.join(stop_cwd, "FAST_plots"), "Percentile": "99",
+                      "Scale combos": "log-log linear-log"}
+            for name, value in values.items():
+                fields[name].type_text(value)
+            os.environ[GUI_PROBE_ENV] = os.path.join(tmp, "gui_probe_c_stopped.json")
+            before = set(multiprocessing.active_children())
+            t0 = time.perf_counter()
+            buttons["Plot"].click()
+            (child,) = [p for p in multiprocessing.active_children() if p not in before]
+            qt_wait(app, lambda: progress.text() != "" or not child.is_alive(), "the first progress line")
+            stop["first_progress_s"] = time.perf_counter() - t0
+            stop["progress"] = progress.text()
+            stop["alive_at_stop"] = child.is_alive()
+            stop["pngs_at_stop"] = len(pngs_under(os.path.join(stop_cwd, "FAST_plots"), stop_cwd))
+            pids = compute_app_pids() if on_card else []
+            stop["listed"] = child.pid in pids
+            stop["apps_before"] = len(pids)
+            t1 = time.perf_counter()
+            buttons["Stop"].click()
+            stop["status"] = status.text()
+
+            def gone():
+                if child.is_alive():
+                    return False
+                if not on_card:
+                    return True
+                pids = compute_app_pids()
+                stop["apps_after"] = len(pids)
+                return child.pid not in pids and (stop["apps_before"] == 0 or len(pids) < stop["apps_before"])
+
+            qt_wait(app, gone, "the stopped child to leave the card", timeout=10)
+            stop["gone_s"] = time.perf_counter() - t1
+            time.sleep(0.5)
+            app.processEvents()
+            stop["status_later"] = status.text()
+            runs["c"] = qt_press(app, qt, 1, {}, "Plot", os.path.join(tmp, "gui_probe_c.json"))
+
+        qt_session(stop_and_resume)
+        c = runs["c"]
+        got_c = pngs_under(os.path.join(stop_cwd, "FAST_plots"), stop_cwd)
+        tmp_left = glob.glob(os.path.join(stop_cwd, "FAST_plots", "**", "*.tmp-*"), recursive=True)
+        want_lin = [p for p in batch_pngs if "_y-linear_z-log_" in p]
+        say("gui", check="c_stop", progress=repr(stop["progress"]), first_progress_s=f"{stop['first_progress_s']:.2f}",
+            alive_at_stop=stop["alive_at_stop"], pngs_at_stop=stop["pngs_at_stop"], status=repr(stop["status"]),
+            status_after_0_5_s=repr(stop["status_later"]), gone_s=f"{stop['gone_s']:.2f}",
+            **({"nvidia_smi_listed_child": stop["listed"], "compute_apps_before": stop["apps_before"],
+                "compute_apps_after": stop.get("apps_after")} if on_card
+               else {"nvidia_smi": "skipped", "why": "no card: the child's exit is checked with is_alive() only"}))
+        say_action("c_resume", c, pngs=len(got_c), tmp_files_left=len(tmp_left))
+        require(stop["alive_at_stop"], "[gui] (c) the child ended before Stop: nothing was stopped")
+        require(stop["status"] == "Stopped." and stop["status_later"] == "Stopped.",
+                f"[gui] (c) status after Stop: {stop['status']!r}, then {stop['status_later']!r}")
+        require(c["status"] == "Finished.", f"[gui] (c) the resumed Plot ended {c['status']!r}")
+        require([p for p in got_c if "_y-log_z-log_" in p] == got, "[gui] (c) the log_log files differ from (b)'s")
+        require([p for p in got_c if "_y-linear_z-log_" in p] == want_lin and len(got_c) == len(got) + len(want_lin),
+                "[gui] (c) the linear_log files differ from [batch]'s")
+        require(not tmp_left, f"[gui] (c) temporary files left: {tmp_left[:3]}")
+        require(c["child"]["device"] == want_device, f"[gui] (c) child ran on {c['child']['device']}")
+        add_launches(records, c["child"]["launches"])
+
+        # (d) The terminal menu in its own process: Single Day, pitch-angle, the 8192x64x128 ees file.
+        os.chdir(batch_tree)
+        out_d = os.path.join(tmp, "gui_tui_pitch.png")
+        answers = f"3\npitch-angle\n{out_d}\nlog-log-inferno\n\n{mapping[big]['ees']}\nq\n"
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (os.path.dirname(os.path.abspath(__file__)),
+                                                        env.get("PYTHONPATH")) if p)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", GUI_MODULE, "--tui"], input=answers, text=True, cwd=batch_tree,
+                              env=env, capture_output=True, timeout=GUI_TIMEOUT_S)
+        tui_s = time.perf_counter() - t0
+        same_d = proc.returncode == 0 and os.path.exists(out_d) and decoded_pixels_equal(
+            out_d, os.path.join(tmp, "single_fast_cdf-file.png"))
+        say("gui", check="d_tui", rc=proc.returncode, done="Done." in proc.stdout, seconds=f"{tui_s:.2f}",
+            pixels_equal_single_cli=same_d)
+        require(proc.returncode == 0 and "Done." in proc.stdout,
+                f"[gui] (d) the TUI exited {proc.returncode}: {proc.stdout[-800:]} {proc.stderr[-1500:]}")
+        require(same_d, "[gui] (d) the TUI's pitch-angle PNG differs from the single FAST CLI's")
+        say("gui", phase_s=f"{time.perf_counter() - t_phase:.2f}")
+    finally:
+        gui.single_in_process, gui.plot_in_process = targets
+        os.chdir(here)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for p in multiprocessing.active_children():  # stop every process the phase started
+            p.kill()
+            p.join()
 
 
 PARALLEL_FILES = 8  # cubes of the [parallel] extrema check, at PARALLEL_SHAPE: 2.15 GB, 1.07 GB a rank

@@ -10,13 +10,17 @@ pre-pass (:mod:`.fast.extrema`) and the per-orbit render
 quantize run in hand-written CUDA kernels (:mod:`.ops.kernels`, sources in
 ``csrc/``) on an NVIDIA GPU and in their plain PyTorch versions on the CPU.
 The audio front end (:mod:`.ops.stft`, whose ``pallas`` method runs the
-STFT-power kernel), the generic single-CDF and batch renders and the CDA
-Web downloads (:mod:`.data.download`) are ported too.
+STFT-power kernel), the generic single-CDF and batch renders, the CDA
+Web downloads (:mod:`.data.download`) and the download / batch-plot /
+single-day front end (``cli.GUI_batch_download_plot_FAST``: Qt pages, on
+the headless stand-in of :mod:`.gui` where Qt is absent, or ``--tui``;
+its actions run in spawned child processes) are ported too.
 
 Layer map:
 
 * ``cli``    -- ``python -m configurable_spectrograms_torch.cli.<name>`` for the
-  five root CLIs and the audio CLI
+  six root CLIs (the front end among them) and the audio CLI
+* ``gui``    -- the headless PySide6 stand-in the front end runs on without Qt
 * ``batch_multi_plot_spectrogram`` -- the root re-export shim's names
 * ``batch_runner`` / ``generic_batch`` -- resumable batch execution
 * ``utils``  -- device selection, logging, progress JSON, percentile helpers,
