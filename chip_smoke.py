@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port once on an NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # the whole check (one GPU)
-    python3 chip_smoke.py --kernels  # build + kernel parity and timing only;
+    python3 chip_smoke.py --kernels  # build + kernel parity and timing + the sweep only;
                                      # its records carry "launches": null
+    python3 chip_smoke.py --sweep-seeds 0:2000  # build + a deep sweep of seeds 0..1999 only
 
 Phases, one line each, in order:
 
@@ -34,6 +35,28 @@ Phases, one line each, in order:
                warm-up (plain versions: 2 windows).  Each [kernel] line has
                bound_ms (the larger of bytes / 3.35 TB/s and, for stft_power,
                3 x 4FKL / 495 TFLOP/s), bound_share and library_ms.
+   sweep    -- each kernel against its plain version on seeded cases
+               (``sweep_case``: seeds 0 .. SWEEP_SEEDS - 1, or the range of
+               --sweep-seeds, and SWEEP_PINNED_SEEDS, the seeds of faults
+               found), one case a seed: cubes as the dispatch pads
+               them and as the extrema pre-pass passes them, 1-19 lanes
+               over 1-3 cubes out of order, masks, t_valid, e_valid,
+               windows and bounds from their degenerate to their random
+               classes, NaN, +-inf, +-0, negatives, subnormals and
+               overflowing sums at random densities; stft_power at F up to
+               20,000, L 8-8192 and any hop.  The rules of the fixed
+               cases: collapse bit for bit, NaN placement included;
+               fused_quantize's vmin and col_all_nan exact and each index
+               exact or one bin apart on a proven bin boundary;
+               stft_power within its tolerance.  The first SWEEP_E2E_SEEDS
+               seeds and the pinned ones also render their lanes as panels through
+               device_render_panels on the card, held to the host backend
+               (compare_panels over the cells a panel shows), or, where the
+               two backends diverge (ROADMAP C), to the same device path on
+               the CPU.  One [sweep] line per kernel (seeds, cases, cells,
+               off_boundary = cells outside the rule, worst_rel) and one for
+               the e2e check; a failing case prints its seed, shapes and
+               lane layout, and fails the run after the phase.
    font     -- the golden pitch grid (tests/goldens/fast_pitch_grid_200dpi.png,
                the inputs of tests/test_golden_figures.py) on the host
                backend: the font file must be a real one (the port's bundled
@@ -631,14 +654,14 @@ def figure_panels(figs: list, dpi: float | None = None) -> list:
 
 
 def render_all(panels: list) -> list:
-    from configurable_spectrograms_torch.render.dispatch import render_panels
+    from configurable_spectrograms_torch.render.dispatch import device_render_panels
 
     by_tile: dict = {}
     for k, (h, w, p) in enumerate(panels):
         by_tile.setdefault((h, w), []).append(k)
     results = [None] * len(panels)
     for (h, w), ks in by_tile.items():
-        for k, r in zip(ks, render_panels([panels[k][2] for k in ks], h, w)):
+        for k, r in zip(ks, device_render_panels([panels[k][2] for k in ks], h, w)):
             results[k] = r
     return results
 
@@ -667,14 +690,17 @@ def boundary_mask(m: np.ndarray, vmin: float, vmax: float, z_scale: str, off: np
     return (np.abs(bins - np.rint(bins)) <= tol) & off
 
 
-def compare_panels(panels: list, dev: list, host: list) -> tuple[int, int, int]:
+def compare_panels(panels: list, dev: list, host: list, window_only: bool = False) -> tuple[int, int, int]:
     """Device vs host: bounds bit for bit, index cells within one bin.
 
     The index map is elementwise over the whole (T, E) matrix, so every
     row the device brought back (all of them, or the rows the pixels
-    sample) is compared over the file's E columns.  A cell one bin apart
-    must sit on a bin boundary.  Returns (cells compared, cells one bin
-    apart, of those the cells on a bin boundary).
+    sample) is compared over the file's E columns; with *window_only*,
+    only the cells the panel can show: rows inside its time window,
+    columns inside its energy range (the kept cells tests/test_fuzz_parity.py
+    holds the two backends to).
+    A cell one bin apart must sit on a bin boundary.  Returns (cells
+    compared, cells one bin apart, of those the cells on a bin boundary).
     """
     from configurable_spectrograms_torch.render.host_quantize import host_collapse
 
@@ -693,14 +719,18 @@ def compare_panels(panels: list, dev: list, host: list) -> tuple[int, int, int]:
         T, _, E = p.cube.shape
         rows = d["idx_rows"][: d["idx"].shape[0]]
         keep = rows < T
+        if window_only:
+            keep &= (rows >= p.window.t_start) & (rows < p.window.t_start + p.window.t_count)
         dv = d["idx"][keep][:, :E].astype(np.int32)
         hv = h["idx"][rows[keep]].astype(np.int32)
+        cols = (p.energy >= p.y_min) & (p.energy <= p.y_max) if window_only else np.ones(E, bool)
+        dv, hv = dv[:, cols], hv[:, cols]
         diff = np.abs(dv - hv)
         require(diff.size == 0 or int(diff.max()) <= 1, f"idx differs by {int(diff.max())} bins")
         n_cells += diff.size
         n_off += int((diff > 0).sum())
         if (diff > 0).any():
-            m = host_collapse(p.cube, p.pitch_mask)[rows[keep]]
+            m = host_collapse(p.cube, p.pitch_mask)[rows[keep]][:, cols]
             n_boundary += int(boundary_mask(m, float(h["vmin"]), float(h["vmax"]), p.z_scale, diff > 0).sum())
     require(n_boundary == n_off, f"{n_off - n_boundary} of {n_off} index cells differ away from a bin boundary")
     return n_cells, n_off, n_boundary
@@ -909,13 +939,19 @@ def stft_tolerance(ref, got) -> tuple[float, float]:
 
     The bound of tests/test_stft.py:243-244; a ratio <= 1 passes.
     """
+    ratio, diff = stft_ratio(ref, got)
+    return float(diff.max()), float(ratio.max())
+
+
+def stft_ratio(ref, got):
+    """(|got - ref| over its tolerance, |got - ref|), cell by cell: the tolerance of :func:`stft_tolerance`."""
     import torch
 
     ref = torch.as_tensor(ref, dtype=torch.float32)
     got = torch.as_tensor(got, dtype=torch.float32).to(ref.device)
     diff = (got - ref).abs()
     scale = torch.maximum(ref.abs(), 1e-3 * ref.abs().max())
-    return float(diff.max()), float((diff / (1e-4 * scale + 1e-2)).max())
+    return diff / (1e-4 * scale + 1e-2), diff
 
 
 def make_audio(seconds: float, rate: int, seed: int = 0) -> np.ndarray:
@@ -1000,6 +1036,445 @@ def check_stft_kernel(device, signal: np.ndarray) -> dict:
     for L, hop in STFT_EXTRA_SHAPES:
         stft_case(K, head, L, hop, f64=True)
     return {"stft_power": records[0]}
+
+
+# ---------------------------------------------------------------------------
+# [sweep]: the three kernels against their plain versions on seeded cases
+# ---------------------------------------------------------------------------
+
+SWEEP_SEEDS = 160  # the default run's seeds: 0 .. SWEEP_SEEDS - 1 (about 60 s on the card)
+#: Seeds whose case found a fault, run (with the e2e check) by every sweep whatever its range (ROADMAP C).
+#: 72: a log-z lane whose only finite positive cells are >= 3e38 (the fused route's safe floor).
+SWEEP_PINNED_SEEDS = (72,)
+SWEEP_PROGRESS = 250  # a deep sweep says how far it got every this many seeds
+SWEEP_E2E_SEEDS = 8  # the first this many seeds of a sweep also go through device_render_panels against the host
+SWEEP_MAX_CELLS = 1 << 27  # a case's cube stack, U*T*A*E float32 cells (512 MiB), unless sweep_case is given less
+SWEEP_MAX_FRAME_CELLS = 1 << 25  # a stft_power case's F*L
+SWEEP_GROUP = 8  # ops.kernels.COLLAPSE_GROUP (this module imports none of the package at its top)
+SWEEP_VALUES = ("nan", "posinf", "neginf", "pos_zero", "neg_zero", "negative", "subnormal", "huge")
+SWEEP_BOUNDS = ("given", "vmin_nonpositive", "equal", "tiny_vmin", "inverted")
+
+
+def _log_int(rng, lo: int, hi: int) -> int:
+    """An integer in [lo, hi], log-uniform: small shapes often, the largest ones now and then."""
+    return int(np.clip(np.exp(rng.uniform(np.log(lo), np.log(hi + 1))), lo, hi))
+
+
+def _sweep_shape(rng, padded: bool, cap: int) -> tuple[int, int, int, int]:
+    """(U, T, A, E): as the dispatch pads a bucket, or as the extrema pre-pass passes a file; at most *cap* cells."""
+    if padded:
+        dims, step = [256 * _log_int(rng, 1, 32), 8 * int(rng.integers(1, 9)), 8 * _log_int(rng, 1, 66)], (256, 8, 8)
+    else:
+        dims, step = [_log_int(rng, 1, 9000), int(rng.integers(1, 65)), _log_int(rng, 1, 200)], (1, 1, 1)
+    U = int(rng.integers(1, 4))
+    while U * dims[0] * dims[1] * dims[2] > cap:
+        # Halve the dimension furthest above its floor (in its step), then drop cubes.
+        ratio = [d / s for d, s in zip(dims, step)]
+        i = int(np.argmax(ratio))
+        if ratio[i] > 1:
+            dims[i] = max(step[i], dims[i] // 2 // step[i] * step[i])
+        elif U > 1:
+            U -= 1
+        else:
+            break
+    return (U, *dims)
+
+
+def _sweep_values(rng, shape: tuple, classes: set) -> tuple[np.ndarray, float]:
+    """The cube stack: seeded positive values, then each value class at its own random density."""
+    n = int(np.prod(shape))
+    scale = float(10.0 ** rng.uniform(-1.0, 4.0))
+    flat = rng.random(n, dtype=np.float32) * np.float32(scale)
+    present = [c for c in SWEEP_VALUES if rng.random() < 0.5]
+    edges = np.cumsum(10.0 ** rng.uniform(-4.0, -1.0, len(present)))
+    if present and n:
+        u = rng.random(n, dtype=np.float32)
+        hit = np.flatnonzero(u < edges[-1])
+        kind = np.searchsorted(edges, u[hit], side="right")
+        for k, name in enumerate(present):
+            at = hit[kind == k]
+            m = len(at)
+            if name == "nan":
+                flat[at] = np.nan
+            elif name == "posinf":
+                flat[at] = np.inf
+            elif name == "neginf":
+                flat[at] = -np.inf
+            elif name == "pos_zero":
+                flat[at] = 0.0
+            elif name == "neg_zero":
+                flat[at] = -0.0
+            elif name == "negative":
+                flat[at] = -flat[at]
+            elif name == "subnormal":
+                flat[at] = rng.uniform(1e-45, 1.1e-38, m).astype(np.float32)
+            else:  # huge: sums of two overflow to +-inf
+                flat[at] = (rng.choice((-1.0, 1.0), m) * rng.uniform(1e38, 3.4e38, m)).astype(np.float32)
+            classes.add(f"value_{name}")
+    cubes = flat.reshape(shape)
+    U, T, A, E = shape
+    if "value_huge" in classes and A > 1:  # one cell whose pitch sum overflows whatever the density
+        cubes[rng.integers(U), rng.integers(T), :, rng.integers(E)] = np.float32(3.0e38)
+    if rng.random() < 0.3:
+        cubes[rng.integers(U), :, :, rng.integers(0, E, int(rng.integers(1, max(2, E // 8 + 1))))] = np.nan
+        classes.add("all_nan_columns")
+    if rng.random() < 0.15:
+        cubes[rng.integers(U)] = np.nan
+        classes.add("all_nan_cube")
+    return cubes, scale
+
+
+def _sweep_bounds(rng, kind: str, scale: float) -> tuple[float, float]:
+    if kind == "given":
+        lo = scale * 10.0 ** rng.uniform(-4.0, -0.5)
+        return lo, lo * 10.0 ** rng.uniform(0.3, 5.0)
+    if kind == "vmin_nonpositive":
+        return float(rng.choice((0.0, -0.0, -scale * rng.random()))), scale * 10.0 ** rng.uniform(-2.0, 0.0)
+    if kind == "equal":
+        v = scale * 10.0 ** rng.uniform(-3.0, 0.0)
+        return v, v
+    if kind == "tiny_vmin":
+        return float(rng.choice((1e-30, 1.2e-38, 1e-41))), scale
+    vmax = scale * 10.0 ** rng.uniform(-3.0, -1.0)  # inverted
+    return vmax * 10.0 ** rng.uniform(0.1, 2.0), vmax
+
+
+def sweep_case(seed: int, max_cells: int | None = None) -> dict:
+    """One seeded case for all three kernels, drawn from ``numpy.random.default_rng(seed)``.
+
+    collapse / fused_quantize: 1-3 cubes (U, T, A, E), either padded as the
+    dispatch pads a bucket (T a multiple of 256 up to 8192, A a multiple of
+    8 from 8 to 64, E a multiple of 8 from 8 to 528) or unpadded as the
+    extrema pre-pass passes files (T 1-9000, A 1-64, E 1-200), with at most
+    *max_cells* cells (default :data:`SWEEP_MAX_CELLS`; the largest
+    dimension, then the cube count, is cut until it fits).  1 to
+    ``2 * COLLAPSE_GROUP + 3`` lanes over the cubes, interleaved and out of
+    order (or all on one cube); per lane a pitch mask (none, one bin, all,
+    random), t_valid (0, 1, T - 1, T, random), e_valid (none, all,
+    random), a window (empty, the whole file, random) and bounds (given;
+    vmin <= 0; vmin == vmax; a tiny vmin; vmin > vmax); one z scale.  Cube
+    values: seeded positives with each of NaN, +-inf, +-0, negatives,
+    subnormals and values near 3e38 (sums that overflow) at its own random
+    density, all-NaN columns and all-NaN cubes now and then.
+
+    stft_power: F 1-20,000, L 8-8192 (half of them a multiple of 16), hop
+    1-L (half of them a multiple of 4), K = L // 2 + 1, F * L at most
+    :data:`SWEEP_MAX_FRAME_CELLS` (or *max_cells*); the signal is seeded
+    noise plus three tones.
+
+    ``classes`` names every class of the lattice the case reaches.
+    """
+    rng = np.random.default_rng(seed)
+    cap = SWEEP_MAX_CELLS if max_cells is None else int(max_cells)
+    padded = bool(rng.random() < 0.5)
+    classes = {"padded" if padded else "unpadded"}
+    U, T, A, E = shape = _sweep_shape(rng, padded, cap)
+    cubes, scale = _sweep_values(rng, shape, classes)
+
+    L = int(rng.integers(1, 2 * SWEEP_GROUP + 4))
+    one_cube = U == 1 or rng.random() < 0.3
+    u_idx = np.full(L, rng.integers(U)) if one_cube else rng.integers(0, U, L)
+    if np.bincount(u_idx).max() > SWEEP_GROUP:
+        classes.add("several_groups_on_a_cube")
+    if len(np.unique(u_idx)) > 1 and np.any(np.diff(u_idx) < 0):
+        classes.add("lanes_interleaved")
+    kinds = {k: [] for k in ("mask", "t_valid", "e_valid", "window", "bounds")}
+    masks = np.zeros((L, A), bool)
+    e_valid = np.zeros((L, E), bool)
+    t_valid, t_start, t_count = (np.zeros(L, np.int32) for _ in range(3))
+    z_bounds = np.zeros((L, 2), np.float32)
+    for j in range(L):
+        k = str(rng.choice(("none", "one", "all", "random"), p=(0.1, 0.2, 0.3, 0.4)))
+        kinds["mask"].append(k)
+        if k == "one":
+            masks[j, rng.integers(A)] = True
+        elif k == "all":
+            masks[j] = True
+        elif k == "random":
+            masks[j] = rng.random(A) < rng.uniform(0.2, 0.9)
+        k = str(rng.choice(("zero", "one", "T-1", "T", "random"), p=(0.1, 0.1, 0.15, 0.35, 0.3)))
+        kinds["t_valid"].append(k)
+        t_valid[j] = {"zero": 0, "one": min(1, T), "T-1": T - 1, "T": T}.get(k, int(rng.integers(0, T + 1)))
+        k = str(rng.choice(("none", "all", "random"), p=(0.1, 0.4, 0.5)))
+        kinds["e_valid"].append(k)
+        if k == "all":
+            e_valid[j] = True
+        elif k == "random":
+            e_valid[j] = rng.random(E) < rng.uniform(0.3, 0.95)
+        k = str(rng.choice(("empty", "whole", "random"), p=(0.15, 0.35, 0.5)))
+        kinds["window"].append(k)
+        if k == "empty":
+            t_start[j], t_count[j] = int(rng.integers(0, T + 1)), 0
+        elif k == "whole":
+            t_start[j], t_count[j] = 0, T
+        else:
+            t_start[j] = int(rng.integers(0, T))
+            t_count[j] = int(rng.integers(0, T - t_start[j] + 1))
+        k = str(rng.choice(SWEEP_BOUNDS, p=(0.4, 0.15, 0.15, 0.15, 0.15)))
+        kinds["bounds"].append(k)
+        z_bounds[j] = _sweep_bounds(rng, k, scale)
+    for name, ks in kinds.items():
+        classes.update(f"{name}_{k}" for k in ks)
+    z_scale = str(rng.choice(("log", "linear")))
+    classes.add(f"z_{z_scale}")
+
+    F = _log_int(rng, 1, 20000)
+    Ls = 16 * _log_int(rng, 1, 512) if rng.random() < 0.5 else _log_int(rng, 8, 8192)
+    hop = _log_int(rng, 1, Ls)
+    if hop >= 4 and rng.random() < 0.5:
+        hop -= hop % 4
+    while F > 1 and F * Ls > (SWEEP_MAX_FRAME_CELLS if max_cells is None else cap):
+        F //= 2
+    n = (F - 1) * hop + Ls
+    t = np.arange(n, dtype=np.float64)
+    signal = 0.05 * rng.standard_normal(n)
+    for f, a in zip(rng.uniform(0.0, 0.5, 3), rng.uniform(0.05, 0.5, 3)):
+        signal += a * np.sin(2.0 * np.pi * f * t)
+    classes.add("stft_L16" if Ls % 16 == 0 else "stft_L_tail")
+    classes.add("stft_hop4" if hop % 4 == 0 else "stft_hop_odd")
+    return {
+        "seed": seed, "padded": padded, "shape": shape, "cubes": cubes, "u_idx": u_idx.astype(np.int32),
+        "masks": masks, "t_valid": t_valid, "e_valid": e_valid, "t_start": t_start, "t_count": t_count,
+        "z_bounds": z_bounds, "z_scale": z_scale, "kinds": kinds, "classes": classes,
+        "stft": {"F": F, "L": Ls, "hop": hop, "signal": signal.astype(np.float32)},
+    }
+
+
+def describe_case(case: dict, kernel: str) -> str:
+    """What a failing case needs to be pinned: its seed, shapes and lane layout."""
+    if kernel == "stft_power":
+        s = case["stft"]
+        return f"seed={case['seed']} F={s['F']} L={s['L']} hop={s['hop']}"
+    U, T, A, E = case["shape"]
+    return (f"seed={case['seed']} shape={U}x{T}x{A}x{E} padded={case['padded']} z={case['z_scale']} "
+            f"u_idx={case['u_idx'].tolist()} t_valid={case['t_valid'].tolist()} "
+            f"t_start={case['t_start'].tolist()} t_count={case['t_count'].tolist()} "
+            f"z_bounds={case['z_bounds'].tolist()} kinds={json.dumps(case['kinds'])}")
+
+
+def _sweep_lanes(case: dict, device) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(np.ascontiguousarray(case[k])).to(device)
+            for k in ("cubes", "u_idx", "masks", "e_valid", "t_valid", "t_start", "t_count", "z_bounds")}
+
+
+def sweep_kernels(K, case: dict, device) -> dict[str, dict]:
+    """One case through each kernel and its plain version on the card, held to the fixed cases' rules.
+
+    Per kernel: cells compared, ``off`` (cells outside the rule: a
+    collapse cell not bit-identical, NaN placement included; a fused cell
+    more than a bin apart or one bin apart off a proven bin boundary, and
+    every vmin or col_all_nan entry that differs; a stft_power cell outside
+    ``stft_tolerance``), ``on_boundary`` (fused cells one bin apart on a
+    proven boundary) and ``worst_rel`` (collapse: the largest
+    |kernel - plain| / |plain|; fused: the largest relative vmin
+    difference; stft_power: the largest ratio to the tolerance, <= 1 passes).
+    """
+    import torch
+
+    from configurable_spectrograms_torch.ops.stft import _dft_bases, frame_signal
+
+    x = _sweep_lanes(case, device)
+    lanes = (x["cubes"], x["u_idx"], x["masks"], x["t_valid"])
+    got = K.collapse_lanes(*lanes)
+    want = K.collapse_lanes_plain(*lanes)
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    same = (got == want) | (nan_g & nan_w)
+    rel = ((got - want).abs() / want.abs()).masked_fill(same, 0.0).nan_to_num(nan=float("inf"))
+    out = {"collapse": {"cells": want.numel(), "off": int((~same).sum()), "on_boundary": 0,
+                        "worst_rel": float(rel.max()) if rel.numel() else 0.0}}
+    del got, nan_g, nan_w, same, rel
+
+    z = case["z_scale"]
+    fargs = (*lanes[:3], x["e_valid"], x["t_valid"], x["t_start"], x["t_count"], x["z_bounds"])
+    fg = K.fused_quantize_lanes(*fargs, z_scale=z)
+    fw = K.fused_quantize_lanes_plain(*fargs, z_scale=z)
+    d = (fg["idx"].int() - fw["idx"].int()).abs()
+    far = int((d > 1).sum())
+    near = d == 1
+    on_boundary = 0
+    zb = case["z_bounds"]
+    vmin_w = fw["vmin"].cpu().numpy()
+    with np.errstate(all="ignore"):
+        for j in torch.nonzero(near.flatten(1).any(dim=1)).flatten().tolist():
+            on_boundary += int(boundary_mask(want[j].cpu().numpy(), float(vmin_w[j]), float(zb[j, 1]), z,
+                                             near[j].cpu().numpy()).sum())
+        vg = fg["vmin"].cpu().numpy()
+        vmin_off = int((vg != vmin_w).sum())
+        vrel = np.abs(vg.astype(np.float64) - vmin_w) / np.abs(vmin_w.astype(np.float64))
+    nan_off = int((fg["col_all_nan"] != fw["col_all_nan"]).sum())
+    out["fused_quantize"] = {"cells": d.numel(), "off": far + int(near.sum()) - on_boundary + vmin_off + nan_off,
+                             "on_boundary": on_boundary,
+                             "worst_rel": float(np.nan_to_num(vrel, nan=0.0).max()) if vrel.size else 0.0}
+    del fg, fw, d, near, want
+
+    s = case["stft"]
+    sig = torch.from_numpy(s["signal"]).to(device)
+    frames = frame_signal(sig, s["L"], s["hop"])
+    cos_b, sin_b = (torch.from_numpy(b).to(device) for b in _dft_bases(s["L"]))
+    got = K.stft_power(frames, cos_b, sin_b)
+    want = K.stft_power_plain(frames, cos_b, sin_b)
+    ratio, _ = stft_ratio(want, got)
+    out["stft_power"] = {"cells": want.numel(), "off": int((~(ratio <= 1.0)).sum()), "on_boundary": 0,
+                         "worst_rel": float(ratio.max()) if ratio.numel() else 0.0}
+    return out
+
+
+def sweep_panels(case: dict) -> list:
+    """The case's lanes as PanelData, one panel a lane with file rows, as a figure hands them to the dispatch.
+
+    A lane's panel reads its cube's first t_valid rows; its window, its
+    energy range (from e_valid) and its bounds are the lane's (none where
+    the lane's bounds are not vmin < vmax, so that bucket takes the
+    percentile route), under the case's z scale.  Finite values of 1e38 or
+    more (the sweep's overflowing sums) become NaN here: the two backends'
+    parity contract (docs/parity.md, tests/test_fuzz_parity.py) holds for
+    sums that do not overflow, and the kernels meet such values in
+    sweep_kernels.
+    """
+    from configurable_spectrograms_torch.render.panel import PanelData
+    from configurable_spectrograms_torch.render.tile import compute_time_window
+
+    rng = np.random.default_rng(case["seed"])
+    U, T, A, E = case["shape"]
+    energy = np.geomspace(10.0, 3.0e4, E) if E > 1 else np.array([100.0])
+    cubes = np.where(np.isfinite(case["cubes"]) & (np.abs(case["cubes"]) >= 1e38), np.float32(np.nan), case["cubes"])
+    panels = []
+    for j in range(len(case["u_idx"])):
+        tv = int(case["t_valid"][j])
+        if tv == 0:
+            continue
+        times = np.arange(tv, dtype=np.float64)
+        t0 = min(int(case["t_start"][j]), tv - 1)
+        t1 = min(t0 + max(int(case["t_count"][j]), 1), tv) - 1
+        window = compute_time_window(times, x_min=times[t0], x_max=times[t1])
+        ev = np.flatnonzero(case["e_valid"][j])
+        lo, hi = (energy[ev[0]], energy[ev[-1]]) if len(ev) else (energy[0], energy[-1])
+        vmin, vmax = (float(v) for v in case["z_bounds"][j])
+        given = bool(vmin < vmax) and rng.random() < 0.7
+        panels.append(PanelData(
+            cube=cubes[case["u_idx"][j], :tv], pitch_mask=case["masks"][j], energy=energy, times=times,
+            window=window, y_min=float(lo), y_max=float(hi), z_min=vmin if given else None,
+            z_max=vmax if given else None, y_scale=str(rng.choice(("log", "linear"))), z_scale=case["z_scale"],
+            colormap="inferno", x_is_unix=False, z_label=""))
+    return panels
+
+
+def sweep_e2e(case: dict) -> dict:
+    """The case's panels through device_render_panels on the card, held to the host backend.
+
+    Each panel is held to the host render by :func:`compare_panels` over
+    the cells it can show.  A panel that fails there is held instead, bit
+    for bit in its bounds and within a bin on a proven boundary in its
+    cells, to the same device path run on the CPU (the plain kernels, the
+    semantics the JAX package's device backend has and
+    tests/test_torch_spectrogram.py pins) -- and counts as a divergence of
+    the two backends only where that CPU render differs from the host in
+    the same way; otherwise it fails.  Returns the counts and the failures.
+    """
+    from configurable_spectrograms_torch.render.dispatch import device_render_panels
+
+    panels = sweep_panels(case)
+    tiles = [(48, 64, p) for p in panels]
+    results = {}
+    saved = {k: os.environ.get(k) for k in ("CST_RENDER_BACKEND", "CST_TORCH_DEVICE")}
+    try:
+        for name, backend, dev in (("card", "device", saved["CST_TORCH_DEVICE"] or "cuda"),
+                                   ("cpu", "device", "cpu"), ("host", "host", "cpu")):
+            os.environ["CST_RENDER_BACKEND"], os.environ["CST_TORCH_DEVICE"] = backend, dev
+            results[name] = device_render_panels(panels, 48, 64)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    def as_host(r: dict, T: int, E: int) -> dict:
+        """A device result in the host's form: its index rows at their matrix rows, its file's E columns."""
+        if "error" in r:
+            return r
+        rows = r["idx_rows"][: r["idx"].shape[0]]
+        idx = np.zeros((T, E), np.uint8)
+        idx[rows[rows < T]] = r["idx"][rows < T, :E]
+        return {**{k: r[k] for k in ("vmin", "vmax", "y0", "y1", "n_kept", "empty")}, "idx": idx}
+
+    results["cpu"] = [as_host(r, p.cube.shape[0], p.cube.shape[2]) for r, p in zip(results["cpu"], panels)]
+    out = {"panels": len(panels), "cells": 0, "one_bin_apart": 0, "on_boundary": 0, "divergent": 0, "failures": []}
+    for i, tile in enumerate(tiles):
+        def held(a: str, b: str):
+            try:
+                return compare_panels([tile], [results[a][i]], [results[b][i]], window_only=True), None
+            except AssertionError as exc:
+                return None, str(exc)
+
+        got, why = held("card", "host")
+        if got is None:
+            got, why_cpu = held("card", "cpu")
+            _, why_ref = held("cpu", "host") if got is not None else (None, None)
+            if got is None or why_ref != why:
+                out["failures"].append(f"panel {i}: card vs host: {why}; card vs cpu: {why_cpu}; cpu vs host: {why_ref}")
+                continue
+            out["divergent"] += 1
+        out["cells"] += got[0]
+        out["one_bin_apart"] += got[1]
+        out["on_boundary"] += got[2]
+    return out
+
+
+def run_sweep(device, first: int, count: int) -> dict:
+    """The ``[sweep]`` phase: :data:`SWEEP_PINNED_SEEDS`, then seeds first .. first + count - 1, through
+    every kernel; the pinned seeds and the first :data:`SWEEP_E2E_SEEDS` of the range also end to end
+    (device_render_panels, device vs host backend)."""
+    import torch
+
+    from configurable_spectrograms_torch.ops import kernels as K
+
+    names = ("collapse", "fused_quantize", "stft_power")
+    tot = {k: {"cases": 0, "cells": 0, "off": 0, "on_boundary": 0, "worst_rel": 0.0} for k in names}
+    e2e = {"seeds": 0, "panels": 0, "cells": 0, "one_bin_apart": 0, "on_boundary": 0, "divergent": 0}
+    failures = []
+    t0 = time.perf_counter()
+    seeds = [s for s in SWEEP_PINNED_SEEDS if not first <= s < first + count] + list(range(first, first + count))
+    for n, seed in enumerate(seeds):
+        case = sweep_case(seed)
+        res = sweep_kernels(K, case, device)
+        for k in names:
+            r = res[k]
+            t = tot[k]
+            t["cases"] += 1
+            t["cells"] += r["cells"]
+            t["off"] += r["off"]
+            t["on_boundary"] += r["on_boundary"]
+            t["worst_rel"] = max(t["worst_rel"], r["worst_rel"])
+            if r["off"]:
+                failures.append((k, case))
+                say("sweep", FAIL=k, off=r["off"], worst_rel=r["worst_rel"], case=describe_case(case, k))
+        if seed in SWEEP_PINNED_SEEDS or 0 <= seed - first < SWEEP_E2E_SEEDS:
+            r = sweep_e2e(case)
+            e2e["seeds"] += 1
+            for k in ("panels", "cells", "one_bin_apart", "on_boundary", "divergent"):
+                e2e[k] += r[k]
+            if r["failures"]:
+                failures.append(("e2e", case))
+                say("sweep", FAIL="e2e", why=" | ".join(r["failures"]), case=describe_case(case, "e2e"))
+        del case, res
+        if (n + 1) % SWEEP_PROGRESS == 0:
+            say("sweep", progress=f"{n + 1}/{len(seeds)}", failures=len(failures),
+                seconds=f"{time.perf_counter() - t0:.2f}")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for k in names:
+        t = tot[k]
+        say("sweep", kernel=k, seeds=f"{first}:{count}", cases=t["cases"], cells=t["cells"],
+            off_boundary=t["off"], worst_rel=t["worst_rel"],
+            **({"one_bin_apart_on_a_boundary": t["on_boundary"]} if k == "fused_quantize" else {}))
+    say("sweep", check="e2e", seeds=e2e["seeds"], panels=e2e["panels"], cells=e2e["cells"],
+        cells_one_bin_apart=e2e["one_bin_apart"], of_them_on_a_bin_boundary=e2e["on_boundary"],
+        backends_divergent_panels=e2e["divergent"], seconds=f"{seconds:.2f}")
+    require(not failures, f"[sweep] {len(failures)} case(s) outside their rule: "
+            + ", ".join(f"{k} seed {c['seed']}" for k, c in failures[:20]))
+    return {"seconds": seconds, "totals": tot, "e2e": e2e}
 
 
 def call_main(main, argv: list[str]) -> int:
@@ -2089,7 +2564,13 @@ def main() -> int:
     ap.add_argument("--kernels", action="store_true", help="build and check the kernels only")
     ap.add_argument("--backend-switches", type=int, metavar="N", default=0,
                     help="only time the flagship batch with each render back-end switch off alone, N rounds")
+    ap.add_argument("--sweep-seeds", metavar="START:COUNT", default=None,
+                    help="only build the kernels and sweep them over seeds START .. START + COUNT - 1")
     args = ap.parse_args()
+    sweep = (0, SWEEP_SEEDS)
+    if args.sweep_seeds is not None:
+        start, _, count = args.sweep_seeds.partition(":")
+        sweep = (int(start), int(count))
 
     import torch
 
@@ -2128,9 +2609,17 @@ def main() -> int:
         print(json.dumps({"switches": per}))
         return 0
 
+    if args.sweep_seeds is not None:
+        got = run_sweep(device, *sweep)
+        print(smi)
+        print(json.dumps({"sweep": {"seeds": args.sweep_seeds, "seconds": got["seconds"], **got["totals"],
+                                    "e2e": got["e2e"]}}))
+        return 0
+
     records = check_kernels(device)
     samples = make_audio(AUDIO_SECONDS, AUDIO_RATE)
     records.update(check_stft_kernel(device, samples.astype(np.float32) / 32768.0))
+    run_sweep(device, *sweep)
     if not args.kernels:
         run_font_and_png()
         run_e2e(records)

@@ -36,7 +36,8 @@
 #define CST_GROUP 8   // lanes a group (a byte of lane bits per pitch bin)
 #define CST_UNROLL 4  // pitch bins whose loads are in flight together
 
-// The sentinel both JAX paths use for "no finite positive value".
+// What the safe-floor minimum of _analyze_matrix takes for a cell that is
+// not finite and positive inside the lane's window and e_valid.
 #define CST_BIG 3.0e38f
 
 __device__ __forceinline__ float cst_nan() { return __int_as_float(0x7fc00000); }

@@ -13,14 +13,18 @@
 //      (T, E) matrix to a scratch buffer (rows at or past t_valid as NaN,
 //      bit-identical to `collapse_lanes_plain`) and, in the same pass, folds
 //      the two statistics the quantize needs: per (lane, column) "any
-//      non-NaN value inside the file rows", and per lane ONE minimum of the
-//      finite positive cells inside its time window and e_valid.  A thread
-//      walks a run of rows of one column vector, so both fold in
-//      registers; the block then reduces them (shared memory, warp
+//      non-NaN value inside the file rows", and per lane the minimum of
+//      its (T, E) matrix with every cell that is not finite, positive,
+//      inside its time window and e_valid replaced by CST_BIG, and whether
+//      it has any such cell -- the safe floor of _analyze_matrix, which
+//      does not mistake a finite value at or above CST_BIG for "none".  A
+//      thread walks a run of rows of one column vector, so all three fold
+//      in registers; the block then reduces them (shared memory, warp
 //      shuffles) and makes one atomicMin per (block, lane) -- on the
-//      float's bits, which order like ints for positive floats -- and one
-//      atomicOr per (block, lane, column).  Both reductions give the same
-//      result in any order, so the output is deterministic.
+//      float's bits, which order like unsigned ints for non-negative
+//      floats -- and one atomicOr per (block, lane) and per (block, lane,
+//      column).  Every reduction gives the same result in any order, so
+//      the output is deterministic.
 //   2. cst_fused_map_kernel reads the lane's minimum, resolves vmin the
 //      way ops/spectrogram._analyze_matrix does, and maps each collapsed
 //      cell to its uint8 colormap index: 16-byte loads of the scratch and
@@ -55,15 +59,17 @@ __device__ __forceinline__ void cst_fused_stats_group(const float* __restrict__ 
                                                       const int* __restrict__ s_w0, const int* __restrict__ s_w1,
                                                       const uint8_t* __restrict__ e_valid,
                                                       float* __restrict__ collapsed, int* __restrict__ col_any,
-                                                      int* __restrict__ col_min_bits, unsigned* __restrict__ s_any,
+                                                      unsigned* __restrict__ lane_min_bits, int* __restrict__ lane_pos,
+                                                      unsigned* __restrict__ s_any, unsigned& s_pos,
                                                       float (*__restrict__ s_min)[CST_GROUP], bool active, int cx,
                                                       int col, int t0, int tstep, int T, int A, int E) {
     // Bit g * VEC + c of ev / any: lane g, column col + c.
     unsigned ev = 0;
     unsigned any = 0;
+    unsigned pos = 0;  // bit g: lane g has a finite positive cell in its window and e_valid
     float mn[G];
 #pragma unroll
-    for (int g = 0; g < G; ++g) mn[g] = CST_BIG;
+    for (int g = 0; g < G; ++g) mn[g] = INFINITY;
     if (active) {
 #pragma unroll
         for (int g = 0; g < G; ++g) {
@@ -88,7 +94,9 @@ __device__ __forceinline__ void cst_fused_stats_group(const float* __restrict__ 
                         const int b = g * VEC + c;
                         r[c] = live ? v : cst_nan();
                         if (live && !isnan(v)) any |= 1u << b;
-                        if (win && ((ev >> b) & 1u) && isfinite(v) && v > 0.0f) mn[g] = fminf(mn[g], v);
+                        const bool fp = win && ((ev >> b) & 1u) && isfinite(v) && v > 0.0f;
+                        if (fp) pos |= 1u << g;
+                        mn[g] = fminf(mn[g], fp ? v : CST_BIG);
                     }
                     cst_store<VEC>(collapsed + ((size_t)grp.lanes[g] * T + t) * E + col, r);
                 }
@@ -99,6 +107,7 @@ __device__ __forceinline__ void cst_fused_stats_group(const float* __restrict__ 
     // Block reduction: col_any per column vector in shared memory, the lane
     // minima by warp shuffles and then across the warps.
     if (any) atomicOr(&s_any[cx], any);
+    if (pos) atomicOr(&s_pos, pos);
     const int warp = threadIdx.x >> 5;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -120,9 +129,10 @@ __device__ __forceinline__ void cst_fused_stats_group(const float* __restrict__ 
         }
     }
     if ((int)threadIdx.x < grp.n) {
-        float m = CST_BIG;
+        float m = INFINITY;
         for (int w = 0; w < (int)(blockDim.x >> 5); ++w) m = fminf(m, s_min[w][threadIdx.x]);
-        if (m < CST_BIG) atomicMin(col_min_bits + grp.lanes[threadIdx.x], __float_as_int(m));
+        if (m < INFINITY) atomicMin(lane_min_bits + grp.lanes[threadIdx.x], __float_as_uint(m));
+        if ((s_pos >> threadIdx.x) & 1u) atomicOr(lane_pos + grp.lanes[threadIdx.x], 1);
     }
 }
 
@@ -132,12 +142,14 @@ __global__ void __launch_bounds__(CST_STATS_THREADS, CST_STATS_MIN_BLOCKS)
                            const uint8_t* __restrict__ masks, const uint8_t* __restrict__ e_valid,
                            const int* __restrict__ t_valid, const int* __restrict__ t_start,
                            const int* __restrict__ t_count, float* __restrict__ collapsed,
-                           int* __restrict__ col_any, int* __restrict__ col_min_bits, int L, int T, int A, int E) {
+                           int* __restrict__ col_any, unsigned* __restrict__ lane_min_bits,
+                           int* __restrict__ lane_pos, int L, int T, int A, int E) {
     extern __shared__ uint8_t s_sel[];  // A bytes
     __shared__ CstGroup grp;
     __shared__ int s_w0[CST_GROUP];  // each lane's time window [w0, w1)
     __shared__ int s_w1[CST_GROUP];
     __shared__ unsigned s_any[CST_STATS_THREADS];
+    __shared__ unsigned s_pos;
     __shared__ float s_min[CST_STATS_THREADS / 32][CST_GROUP];
 
     const int n = cst_load_group(u_idx, masks, t_valid, L, A, blockIdx.y, grp, s_sel);
@@ -148,6 +160,7 @@ __global__ void __launch_bounds__(CST_STATS_THREADS, CST_STATS_MIN_BLOCKS)
         s_w1[threadIdx.x] = t_start[l] + t_count[l];
     }
     s_any[threadIdx.x] = 0u;
+    if (threadIdx.x == 0) s_pos = 0u;
     __syncthreads();
 
     // A block step covers cw column vectors x rs rows; blockIdx.x is a
@@ -166,8 +179,8 @@ __global__ void __launch_bounds__(CST_STATS_THREADS, CST_STATS_MIN_BLOCKS)
     const int tstep = (gridDim.x / ct) * rs;
     const float* cube = cubes + (size_t)u_idx[blockIdx.y] * T * A * E;
 #define CST_STATS_ARGS                                                                                    \
-    cube, s_sel, grp, s_w0, s_w1, e_valid, collapsed, col_any, col_min_bits, s_any, s_min, active, cx, col, \
-        t0, tstep, T, A, E
+    cube, s_sel, grp, s_w0, s_w1, e_valid, collapsed, col_any, lane_min_bits, lane_pos, s_any, s_pos, s_min, \
+        active, cx, col, t0, tstep, T, A, E
     // The widest accumulator set the group needs (a compile-time width each).
     if (n == 1) {
         cst_fused_stats_group<1, VEC>(CST_STATS_ARGS);
@@ -202,14 +215,13 @@ __device__ __forceinline__ uint32_t cst_quantize(float x, float vmin, float vmax
 
 template <int VEC>
 __global__ void cst_fused_map_kernel(const float* __restrict__ collapsed, const int* __restrict__ col_any,
-                                     const int* __restrict__ col_min_bits, const float* __restrict__ z_bounds,
+                                     const unsigned* __restrict__ lane_min_bits, const int* __restrict__ lane_pos,
+                                     const float* __restrict__ z_bounds,
                                      int log_z, uint8_t* __restrict__ idx, float* __restrict__ vmin_out,
                                      uint8_t* __restrict__ col_all_nan, int T, int E) {
     const int l = blockIdx.y;
-    // The lane's safe floor: its one minimum, or the memset sentinel (above
-    // CST_BIG) where no cell was finite and positive.
-    const float minpos = __int_as_float(col_min_bits[l]);
-    const float safe_vmin = (minpos < CST_BIG) ? minpos : 1e-10f;
+    // The lane's safe floor: its minimum where it has a finite positive cell, else 1e-10.
+    const float safe_vmin = lane_pos[l] ? __uint_as_float(lane_min_bits[l]) : 1e-10f;
 
     float vmin = z_bounds[2 * l];
     const float vmax = z_bounds[2 * l + 1];
@@ -260,8 +272,8 @@ __global__ void cst_fused_map_kernel(const float* __restrict__ collapsed, const 
 template <int VEC>
 static cudaError_t cst_launch_stats(const float* cubes, const int* u_idx, const uint8_t* masks,
                                     const uint8_t* e_valid, const int* t_valid, const int* t_start,
-                                    const int* t_count, float* collapsed, int* col_any, int* col_min_bits, int L,
-                                    int T, int A, int E, cudaStream_t s) {
+                                    const int* t_count, float* collapsed, int* col_any, unsigned* lane_min_bits,
+                                    int* lane_pos, int L, int T, int A, int E, cudaStream_t s) {
     const long long n_vec = E / VEC;
     // Small cubes get 64-thread blocks so that a single group still spreads over the SMs.
     const int threads = (long long)T * n_vec >= 132LL * 4 * CST_STATS_THREADS ? CST_STATS_THREADS : 64;
@@ -274,20 +286,22 @@ static cudaError_t cst_launch_stats(const float* cubes, const int* u_idx, const 
     if (ct * row_blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
     const dim3 grid((unsigned)(ct * row_blocks), (unsigned)L);
     cst_fused_stats_kernel<VEC><<<grid, threads, smem, s>>>(cubes, u_idx, masks, e_valid, t_valid, t_start, t_count,
-                                                             collapsed, col_any, col_min_bits, L, T, A, E);
+                                                             collapsed, col_any, lane_min_bits, lane_pos, L, T, A,
+                                                             E);
     return cudaGetLastError();
 }
 
 template <int VEC>
-static cudaError_t cst_launch_map(const float* collapsed, const int* col_any, const int* col_min_bits,
-                                  const float* z_bounds, int log_z, uint8_t* idx, float* vmin_out,
+static cudaError_t cst_launch_map(const float* collapsed, const int* col_any, const unsigned* lane_min_bits,
+                                  const int* lane_pos, const float* z_bounds, int log_z, uint8_t* idx,
+                                  float* vmin_out,
                                   uint8_t* col_all_nan, int L, int T, int E, cudaStream_t s) {
     const long long n = (long long)T * E / VEC;
     const long long bx = (n + CST_MAP_THREADS * CST_MAP_ITEMS - 1) / (CST_MAP_THREADS * CST_MAP_ITEMS);
     if (bx > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
     const dim3 grid((unsigned)(bx > 0 ? bx : 1), (unsigned)L);
-    cst_fused_map_kernel<VEC><<<grid, CST_MAP_THREADS, 0, s>>>(collapsed, col_any, col_min_bits, z_bounds, log_z,
-                                                                idx, vmin_out, col_all_nan, T, E);
+    cst_fused_map_kernel<VEC><<<grid, CST_MAP_THREADS, 0, s>>>(collapsed, col_any, lane_min_bits, lane_pos,
+                                                                z_bounds, log_z, idx, vmin_out, col_all_nan, T, E);
     return cudaGetLastError();
 }
 
@@ -296,7 +310,7 @@ static cudaError_t cst_launch_map(const float* collapsed, const int* col_any, co
 extern "C" int cst_fused_quantize(const float* cubes, const int* u_idx, const uint8_t* masks,
                                   const uint8_t* e_valid, const int* t_valid, const int* t_start,
                                   const int* t_count, const float* z_bounds, int log_z, float* collapsed,
-                                  int* col_any, int* col_min_bits, uint8_t* idx, float* vmin_out,
+                                  int* col_any, unsigned* lane_min_bits, int* lane_pos, uint8_t* idx, float* vmin_out,
                                   uint8_t* col_all_nan, int L, int T, int A, int E, int phases, void* stream) {
     if (L <= 0 || T <= 0 || E <= 0) return 0;
     if (L > 65535) return (int)cudaErrorInvalidConfiguration;
@@ -307,21 +321,22 @@ extern "C" int cst_fused_quantize(const float* cubes, const int* u_idx, const ui
                       (reinterpret_cast<uintptr_t>(idx) & 3) == 0;
     cudaError_t err = cudaSuccess;
     if (phases & 1) {
-        // col_any starts at 0; the minima at 0x7f7f7f7f, a float (3.4e38) above CST_BIG.
+        // col_any and lane_pos start at 0; the minima at 0xffffffff, above the bits of +inf.
         err = cudaMemsetAsync(col_any, 0, (size_t)L * E * sizeof(int), s);
-        if (err == cudaSuccess) err = cudaMemsetAsync(col_min_bits, 0x7f, (size_t)L * sizeof(int), s);
+        if (err == cudaSuccess) err = cudaMemsetAsync(lane_min_bits, 0xff, (size_t)L * sizeof(unsigned), s);
+        if (err == cudaSuccess) err = cudaMemsetAsync(lane_pos, 0, (size_t)L * sizeof(int), s);
         if (err != cudaSuccess) return (int)err;
         err = vec4 ? cst_launch_stats<4>(cubes, u_idx, masks, e_valid, t_valid, t_start, t_count, collapsed,
-                                         col_any, col_min_bits, L, T, A, E, s)
+                                         col_any, lane_min_bits, lane_pos, L, T, A, E, s)
                    : cst_launch_stats<1>(cubes, u_idx, masks, e_valid, t_valid, t_start, t_count, collapsed,
-                                         col_any, col_min_bits, L, T, A, E, s);
+                                         col_any, lane_min_bits, lane_pos, L, T, A, E, s);
         if (err != cudaSuccess) return (int)err;
     }
     if (phases & 2) {
-        err = vec4 ? cst_launch_map<4>(collapsed, col_any, col_min_bits, z_bounds, log_z, idx, vmin_out,
-                                       col_all_nan, L, T, E, s)
-                   : cst_launch_map<1>(collapsed, col_any, col_min_bits, z_bounds, log_z, idx, vmin_out,
-                                       col_all_nan, L, T, E, s);
+        err = vec4 ? cst_launch_map<4>(collapsed, col_any, lane_min_bits, lane_pos, z_bounds, log_z, idx,
+                                       vmin_out, col_all_nan, L, T, E, s)
+                   : cst_launch_map<1>(collapsed, col_any, lane_min_bits, lane_pos, z_bounds, log_z, idx,
+                                       vmin_out, col_all_nan, L, T, E, s);
     }
     return (int)err;
 }

@@ -38,7 +38,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "cst_collapse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "cst_fused_quantize": [_P] * 8 + [_I] + [_P] * 6 + [_I] * 5 + [_P],
+    "cst_fused_quantize": [_P] * 8 + [_I] + [_P] * 7 + [_I] * 5 + [_P],
     "cst_stft_power": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
 }
 

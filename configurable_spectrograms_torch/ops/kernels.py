@@ -48,7 +48,7 @@ import torch
 LAUNCHES: dict[str, int] = {"collapse": 0, "fused_quantize": 0, "stft_power": 0}
 _LAUNCHES_LOCK = threading.Lock()  # the batch driver launches from several threads
 
-_BIG = 3.0e38  # the "no finite positive value" sentinel of both JAX paths
+_BIG = 3.0e38  # the fill of the safe-floor minimum, as in ops/spectrogram._analyze_matrix
 
 
 def reset_launches() -> None:
@@ -168,8 +168,10 @@ def fused_quantize_lanes_plain(cubes, u_idx, masks, e_valid, t_valid, t_start, t
     in_window = in_file & (rows >= t_start.view(L, 1)) & (rows < (t_start + t_count).view(L, 1))
     fp = torch.isfinite(c) & (c > 0) & in_window.unsqueeze(-1) & e_valid.view(L, 1, E)
     big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
-    minpos = torch.where(fp, c, big).amin(dim=(1, 2))
-    safe_vmin = torch.where(minpos < big, minpos, torch.tensor(1e-10, dtype=torch.float32, device=dev))
+    # The rule of _analyze_matrix: whether a finite positive cell exists is
+    # its own test (a finite value at or above _BIG is one).
+    safe_vmin = torch.where(fp.any(dim=(1, 2)), torch.where(fp, c, big).amin(dim=(1, 2)),
+                            torch.tensor(1e-10, dtype=torch.float32, device=dev))
     vmin = z_bounds[:, 0].float()
     vmax = z_bounds[:, 1].float()
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -298,11 +300,11 @@ def fused_buffers(L: int, T: int, E: int, device) -> tuple[torch.Tensor, dict[st
     """The fused kernel's scratch and outputs: four allocations and no fills.
 
     ``work`` (float32) holds the collapsed (L, T, E) matrices, then
-    ``col_any`` (L, E) and the lane minima (L,) as int32 bits, which the
-    kernel clears itself.  The outputs: ``idx`` (L, T, E) uint8, ``vmin``
+    ``col_any`` (L, E) int32, the lane minima (L,) as uint32 bits and the
+    lanes' any-positive flags (L,) int32, which the kernel clears itself.  The outputs: ``idx`` (L, T, E) uint8, ``vmin``
     (L,) float32, ``col_all_nan`` (L, E) bool.
     """
-    work = torch.empty((L * (T * E + E + 1),), dtype=torch.float32, device=device)
+    work = torch.empty((L * (T * E + E + 2),), dtype=torch.float32, device=device)
     out = {
         "idx": torch.empty((L, T, E), dtype=torch.uint8, device=device),
         "vmin": torch.empty((L,), dtype=torch.float32, device=device),
@@ -324,12 +326,13 @@ def fused_launch(args: tuple, z_scale: str, work: torch.Tensor, out: dict[str, t
     _, T, A, E = cubes.shape
     L = args[1].shape[0]
     lte, le = L * T * E, L * E
-    base = work.data_ptr()  # collapsed, then col_any, then the lane minima
+    base = work.data_ptr()  # collapsed, then col_any, the lane minima, the lanes' any-positive flags
     lib = load_library()
     with torch.cuda.device(cubes.device):
         err = lib.cst_fused_quantize(
             *_cuda_args(*args), 1 if z_scale == "log" else 0, base, base + 4 * lte, base + 4 * (lte + le),
-            out["idx"].data_ptr(), out["vmin"].data_ptr(), out["col_all_nan"].data_ptr(), L, T, A, E, phases,
+            base + 4 * (lte + le + L), out["idx"].data_ptr(), out["vmin"].data_ptr(),
+            out["col_all_nan"].data_ptr(), L, T, A, E, phases,
             torch.cuda.current_stream(cubes.device).cuda_stream)
     _raise_on(err, "cst_fused_quantize")
 

@@ -20,7 +20,7 @@ rows the pixels sample are gathered on the device before the copy.
 The render is split in two halves: :func:`enqueue_render_panels` queues
 every bucket's uploads, launches and packed copy into pinned host memory
 and returns a :class:`..render.drain.PendingRender`, whose ``wait()``
-synchronises and unpacks; :func:`render_panels` is the two together.
+synchronises and unpacks; :func:`device_render_panels` is the two together.
 Nothing in the enqueue half waits on the device: small lane arrays also
 go up from pinned memory, because a copy from pageable memory
 synchronises the stream.
@@ -44,6 +44,7 @@ from configurable_spectrograms_torch.ops.spectrogram import (
 )
 from configurable_spectrograms_torch.render.backend import render_backend
 from configurable_spectrograms_torch.render.device_cache import count, stack_cubes
+from configurable_spectrograms_torch.render.device_cache import upload_telemetry  # noqa: F401  (the JAX module's name)
 from configurable_spectrograms_torch.render.drain import PendingBucket, PendingRender
 from configurable_spectrograms_torch.render.panel import (
     PanelData,
@@ -205,7 +206,7 @@ def enqueue_render_panels(panels: list[PanelData], tile_h: int, tile_w: int) -> 
     return PendingRender(panels, tile_h, tile_w, results, buckets)
 
 
-def render_panels(panels: list[PanelData], tile_h: int, tile_w: int) -> list[dict]:
+def device_render_panels(panels: list[PanelData], tile_h: int, tile_w: int) -> list[dict]:
     """Rasterize many panels: one device program and one copy per bucket (enqueue, then wait).
 
     Returns per-panel results in input order (see

@@ -23,6 +23,19 @@ from typing import Any
 from configurable_spectrograms_torch.render.compositor import AXIS_LABEL_PT, _Layout
 from configurable_spectrograms_torch.render.panel import PanelData
 
+#: The dispatch's names this module re-exports, as the JAX package's does.
+#: They resolve on first use: the dispatch imports torch, and a figure is
+#: built before anything renders.
+_DISPATCH_EXPORTS = ("PendingRender", "device_render_panels", "enqueue_render_panels")
+
+
+def __getattr__(name: str):
+    if name not in _DISPATCH_EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    from configurable_spectrograms_torch.render import dispatch
+
+    return getattr(dispatch, name)
+
 
 class Axes:
     """One grid cell of a :class:`SpectroFigure` (a matplotlib-Axes stand-in)."""

@@ -73,10 +73,10 @@ class RenderCoalescer:
             threading.Thread(target=self._run, daemon=True, name="render-coalescer").start()
 
     def render(self, panels: list, tile_h: int, tile_w: int) -> list[dict]:
-        from configurable_spectrograms_torch.render.dispatch import render_panels
+        from configurable_spectrograms_torch.render.dispatch import device_render_panels
 
         if not coalescing() or not panels:
-            return render_panels(panels, tile_h, tile_w)
+            return device_render_panels(panels, tile_h, tile_w)
         req = _Request(panels, tile_h, tile_w)
         with self._lock:
             self._queue.append(req)

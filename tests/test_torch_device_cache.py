@@ -71,12 +71,12 @@ def test_second_render_of_a_cube_ships_nothing():
     cube = _cube(0)
     panels = _panels(cube) + _panels(cube, z=(2.0, 900.0))  # a raw and a given bucket of one cube
     t0 = device_cache.upload_telemetry()
-    first = dispatch.render_panels(panels, 16, 24)
+    first = dispatch.device_render_panels(panels, 16, 24)
     d1 = _delta(t0)
     assert d1["upload_bytes"] == cube.nbytes and d1["cube_misses"] == 1 and d1["cube_hits"] == 1
     assert d1["dispatches"] == 2 and d1["lanes"] == 4
     t1 = device_cache.upload_telemetry()
-    second = dispatch.render_panels(panels, 16, 24)
+    second = dispatch.device_render_panels(panels, 16, 24)
     d2 = _delta(t1)
     assert d2["upload_bytes"] == 0 and d2["cube_misses"] == 0 and d2["cube_hits"] == 2
     for a, b in zip(first, second):
@@ -85,7 +85,7 @@ def test_second_render_of_a_cube_ships_nothing():
 
 def test_owner_death_evicts():
     cube = _cube(1)
-    dispatch.render_panels(_panels(cube), 16, 24)
+    dispatch.device_render_panels(_panels(cube), 16, 24)
     assert len(device_cache.cube_cache(CPU)) == 1
     del cube
     gc.collect()
@@ -98,22 +98,22 @@ def test_budget_evicts_fifo(monkeypatch):
     cubes = [_cube(s) for s in range(3)]
     monkeypatch.setitem(device_cache._CUBE_CACHES, str(CPU), ResidentCache(max_bytes=2 * _padded_bytes(cubes[0])))
     for c in cubes:
-        dispatch.render_panels(_panels(c), 16, 24)
+        dispatch.device_render_panels(_panels(c), 16, 24)
     keys = device_cache.cube_cache(CPU).keys()
     assert [k[0] for k in keys] == [id(cubes[1]), id(cubes[2])]
     t0 = device_cache.upload_telemetry()
-    dispatch.render_panels(_panels(cubes[0]), 16, 24)  # evicted first: uploads again
+    dispatch.device_render_panels(_panels(cubes[0]), 16, 24)  # evicted first: uploads again
     assert _delta(t0)["cube_misses"] == 1
 
 
 def test_cache_off_gives_identical_results_and_uploads_every_time(monkeypatch):
     cube = _cube(2)
     panels = _panels(cube) + _panels(cube, z=(2.0, 900.0))
-    cached = dispatch.render_panels(panels, 16, 24)
+    cached = dispatch.device_render_panels(panels, 16, 24)
     monkeypatch.setenv("CST_DEVICE_CUBE_CACHE", "0")
     for _ in range(2):
         t0 = device_cache.upload_telemetry()
-        off = dispatch.render_panels(panels, 16, 24)
+        off = dispatch.device_render_panels(panels, 16, 24)
         d = _delta(t0)
         assert d["upload_bytes"] == 2 * cube.nbytes and d["cube_hits"] == d["cube_misses"] == 0
         for a, b in zip(cached, off):
@@ -183,7 +183,7 @@ def test_enqueue_then_wait_equals_render_and_holds_its_tensors():
     assert all(b.refs and b.refs[0].shape[0] == 1 for b in pending.buckets)
     got = pending.wait()
     assert not pending.buckets  # the buckets and their tensors are released after the wait
-    for a, b in zip(got, dispatch.render_panels(panels, 16, 24)):
+    for a, b in zip(got, dispatch.device_render_panels(panels, 16, 24)):
         np.testing.assert_array_equal(a["rgba"], b["rgba"])
 
 
@@ -221,7 +221,7 @@ def test_renders_from_4_threads_count_every_upload(monkeypatch):
     monkeypatch.setenv("CST_RENDER_COALESCE", "0")
     cubes = [_cube(10 + k) for k in range(8)]
     before = device_cache.upload_telemetry()
-    threads = [threading.Thread(target=dispatch.render_panels, args=(_panels(c), 16, 24)) for c in cubes]
+    threads = [threading.Thread(target=dispatch.device_render_panels, args=(_panels(c), 16, 24)) for c in cubes]
     for t in threads:
         t.start()
     for t in threads:

@@ -54,7 +54,7 @@ def _same(a: list, b: list) -> None:
 def test_coalesced_matches_direct(backend, monkeypatch):
     monkeypatch.setenv("CST_RENDER_BACKEND", backend)
     panels = [_panel(np.random.default_rng(s)) for s in range(3)]
-    _same(service.coalesced_render(panels, 24, 32), dispatch.render_panels(panels, 24, 32))
+    _same(service.coalesced_render(panels, 24, 32), dispatch.device_render_panels(panels, 24, 32))
 
 
 def test_coalesced_matches_the_jax_package_on_the_host_backends(monkeypatch):
@@ -75,7 +75,7 @@ def test_coalesced_matches_the_jax_package_on_the_host_backends(monkeypatch):
 def test_concurrent_requests_pool(monkeypatch):
     """Requests arriving while a batch is being enqueued are pooled into the next one."""
     requests = [[_panel(np.random.default_rng(10 + k)) for _ in range(2)] for k in range(6)]
-    expected = [dispatch.render_panels(req, 16, 24) for req in requests]
+    expected = [dispatch.device_render_panels(req, 16, 24) for req in requests]
     real = dispatch.enqueue_render_panels
     sizes = []
 
@@ -104,7 +104,7 @@ def test_mixed_geometries_concurrently():
         got = list(pool.map(lambda r: service.coalesced_render(*r), reqs))
     for (panels, th, tw), res in zip(reqs, got):
         assert res[0]["rgba"].shape == (th, tw, 4)
-        _same(res, dispatch.render_panels(panels, th, tw))
+        _same(res, dispatch.device_render_panels(panels, th, tw))
 
 
 def test_empty_request():
@@ -160,13 +160,13 @@ def test_batches_overlap(monkeypatch):
 def test_coalescing_off_renders_inline(monkeypatch):
     monkeypatch.setenv("CST_RENDER_COALESCE", "0")
     threads = []
-    real = dispatch.render_panels
+    real = dispatch.device_render_panels
 
     def recording(panels, th, tw):
         threads.append(threading.get_ident())
         return real(panels, th, tw)
 
-    monkeypatch.setattr(dispatch, "render_panels", recording)
+    monkeypatch.setattr(dispatch, "device_render_panels", recording)
     res = service.RenderCoalescer().render([_panel(np.random.default_rng(4))], 16, 24)
     assert threads == [threading.get_ident()] and "rgba" in res[0]
 

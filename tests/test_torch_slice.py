@@ -154,9 +154,11 @@ def test_golden_pitch_grid_through_the_port(backend, tmp_path, monkeypatch):
     assert not (img != golden).any(axis=-1).any(), f"{(img != golden).any(axis=-1).mean():.4%} of pixels differ"
 
 
-_BLOCKED_RUN = textwrap.dedent(
+#: A meta-path hook that makes ``jax``, ``jaxlib``, the JAX package and
+#: matplotlib fail to import: the head of every blocked-import run.
+BLOCK_JAX = textwrap.dedent(
     """
-    import importlib, importlib.abc, os, pkgutil, sys, wave
+    import importlib, importlib.abc, sys
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -165,6 +167,13 @@ _BLOCKED_RUN = textwrap.dedent(
             return None
 
     sys.meta_path.insert(0, Block())
+    """
+)
+
+_BLOCKED_RUN = BLOCK_JAX + textwrap.dedent(
+    """
+    import os, pkgutil, wave
+
     import configurable_spectrograms_torch as pkg
 
     for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
