@@ -4,6 +4,7 @@
     python3 chip_smoke.py --kernels  # build + kernel parity and timing + the sweep only;
                                      # its records carry "launches": null
     python3 chip_smoke.py --sweep-seeds 0:2000  # build + a deep sweep of seeds 0..1999 only
+    python3 chip_smoke.py --scale-orbits 325    # build + [scale] over an archive of 325 orbits only
 
 Phases, one line each, in order:
 
@@ -176,6 +177,46 @@ Phases, one line each, in order:
                for bit; stft_power and collapse launched in that phase;
                stft / dispatch / composite / PNG seconds; the second render
                of the figure must ship 0 bytes (its padded cube resident).
+7. scale    -- the port's counterpart of tools/scale_run.py: the flagless
+               flagship CLI run as a user who installed the package runs it,
+               over an archive of SCALE_ORBITS orbits at 2048x32x48 (4
+               instruments, one spawned synthesis process per core) with
+               tools/scale_run.py's three faults (``inject_faults``: orbit
+               offset 1's ees cut to 60% of its bytes, offset 5's ies with
+               its first 256 bytes seeded garbage, offset 9's eeb emptied).
+               The package alone is copied into a temporary ``site/`` (no
+               pyproject.toml there) and byte-compiled, as ``pip install``
+               leaves it; every run is
+               configurable_spectrograms_torch.cli.batch_multi_plot_FAST_spectrograms
+               run as ``python -m`` runs it (``runpy``, from
+               ``FLAGSHIP_RUNNER``, which also writes what the process
+               launched as it exits) in the archive's working directory
+               with PYTHONPATH naming
+               only ``site/``, a fresh HOME, no CST_NATIVE_CACHE_DIR,
+               CST_RENDER_BACKEND=device and CST_TORCH_DEVICE=cuda.  Run 1
+               builds both native libraries into
+               $HOME/.cache/configurable_spectrograms_torch/ (the seconds of
+               each from its ``[BUILD]`` log line) and is SIGKILLed once a
+               third of the archive's PNGs exist and the progress JSON
+               holds a combo's cursor (its ledger flushed); the figures the
+               ledger had recorded at the kill, at least one orbit's, must
+               all be on disk; run 2 waits
+               (bounded) until the killed context leaves nvidia-smi's
+               compute apps, then completes the archive: exit 0, PNGs at
+               least 9 good orbits' worth (tools/scale_run.py's floor), the
+               faulted orbits and only they in the progress JSON's error
+               keys, no ``*.tmp-*`` file, every PNG decodes, both kernels
+               launched (the child's launch report).  Run 3 must exit
+               0 within 30 s, change no file but the log (the progress JSON
+               keeps its content) and launch and dispatch nothing.  The
+               installed copy's tree (names, sizes, mtimes) must not have
+               changed.  Then the host backend, uninterrupted, over orbits 0
+               and 1 in a second tree: the same file list, every raw-named
+               PNG identical or one colormap bin apart.  Per run: PNGs
+               written, seconds, peak GPU memory (nvidia-smi sampled about
+               once a second); redone figures (landed before the kill, not
+               yet recorded), figures/s of runs 1 + 2, build seconds, the
+               error keys.
 
     python3 chip_smoke.py --backend-switches N
 
@@ -187,15 +228,21 @@ CST_RENDER_COALESCE=0, CST_HOST_COMPUTE_GATE=0) and with all three off
 file list and extrema JSON in every run, then the median panels/s of
 each setting.  It prints no ok line.
 
+    python3 chip_smoke.py --scale-orbits N
+
+builds the kernels and runs only [scale] over N orbits (N >= 10); it
+prints the nvidia-smi line and a JSON summary, and no ok line.
+
 Any failure raises (non-zero exit).  The last three lines are the card's
 nvidia-smi line, a JSON line with one record per kernel, and the result
 ``{"ok": true, "device": {...}}``.  Needs no network; the kernels are built
-from the checkout into ``build/cst_torch/``.
+from the checkout into ``build/cst_torch/`` (``ops._build.cache_dir()``).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import glob
 import json
 import os
@@ -1599,8 +1646,7 @@ def run_flagship(cwd: str, backend: str, workers: int | None = None) -> dict:
         os.chdir(here)
         for s, h in handlers.items():  # the driver installs its interrupt escalation
             signal.signal(s, h)
-    pngs = {os.path.relpath(p, cwd): os.stat(p).st_mtime_ns
-            for p in glob.glob(os.path.join(cwd, "FAST_plots", "**", "*.png"), recursive=True)}
+    pngs = pngs_of(cwd)
     # Under a process group of several ranks each rank keeps its own state files (``.proc{rank}``).
     with open(os.path.join(cwd, batch_directory._per_process_path("batch_multi_plot_FAST_progress.json"))) as f:
         progress = json.load(f)
@@ -1907,11 +1953,26 @@ def qt_press(app, qt, index: int, values: dict, button: str, probe: str, until=l
             "exitcode": child.exitcode}
 
 
-def compute_app_pids() -> list[int]:
-    """The pids nvidia-smi lists as holding a CUDA context (it may list none inside a container)."""
-    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+def compute_apps() -> list[tuple[int, int]]:
+    """One (pid, MiB used) row per process nvidia-smi lists as holding a CUDA context.
+
+    Inside a container it may list none, the host's pids, or one pid for
+    several processes: count rows, never distinct pids.
+    """
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, timeout=60).stdout
-    return [int(x) for x in out.split() if x.isdigit()]
+    rows = []
+    for line in out.splitlines():
+        pid, _, mib = line.partition(",")
+        if pid.strip().isdigit():
+            rows.append((int(pid), int(mib.strip()) if mib.strip().isdigit() else 0))
+    return rows
+
+
+def pngs_of(cwd: str) -> dict[str, int]:
+    """The PNGs under *cwd*/FAST_plots: relative path -> mtime in ns."""
+    return {os.path.relpath(p, cwd): os.stat(p).st_mtime_ns
+            for p in glob.glob(os.path.join(cwd, "FAST_plots", "**", "*.png"), recursive=True)}
 
 
 def pngs_under(path: str, base: str) -> list[str]:
@@ -2047,7 +2108,7 @@ def run_gui(records: dict, mapping: dict, root: str, cusp: str, tmp: str, device
             stop["progress"] = progress.text()
             stop["alive_at_stop"] = child.is_alive()
             stop["pngs_at_stop"] = len(pngs_under(os.path.join(stop_cwd, "FAST_plots"), stop_cwd))
-            pids = compute_app_pids() if on_card else []
+            pids = [pid for pid, _ in compute_apps()] if on_card else []
             stop["listed"] = child.pid in pids
             stop["apps_before"] = len(pids)
             t1 = time.perf_counter()
@@ -2059,11 +2120,16 @@ def run_gui(records: dict, mapping: dict, root: str, cusp: str, tmp: str, device
                     return False
                 if not on_card:
                     return True
-                pids = compute_app_pids()
+                pids = [pid for pid, _ in compute_apps()]
                 stop["apps_after"] = len(pids)
                 return child.pid not in pids and (stop["apps_before"] == 0 or len(pids) < stop["apps_before"])
 
-            qt_wait(app, gone, "the stopped child to leave the card", timeout=10)
+            try:
+                qt_wait(app, gone, "the stopped child to leave the card", timeout=10)
+            except AssertionError as exc:
+                raise AssertionError(f"{exc}: alive={child.is_alive()} exitcode={child.exitcode} "
+                                     f"apps_before={stop['apps_before']} apps_now={stop.get('apps_after')} "
+                                     f"compute_apps={compute_apps() if on_card else None}") from exc
             stop["gone_s"] = time.perf_counter() - t1
             time.sleep(0.5)
             app.processEvents()
@@ -2559,6 +2625,460 @@ def run_audio(records: dict, samples: np.ndarray) -> None:
         os.environ.pop("CST_RENDER_BACKEND", None)
 
 
+SCALE_ORBITS = 12  # the default run's archive; --scale-orbits N for tools/scale_run.py's 325
+SCALE_SHAPE = SHAPES[1]  # 2048x32x48, tools/scale_run.py:67-68
+SCALE_FIRST_ORBIT = 3000
+SCALE_SEED = 11  # the garbage header's bytes
+#: The faults of tools/scale_run.py's archive: (orbit offset in the sorted archive, instrument, kind).
+SCALE_FAULTS = ((1, "ees", "truncate"), (5, "ies", "garbage"), (9, "eeb", "empty"))
+SCALE_COMBOS = ("linear_linear", "linear_log", "log_linear", "log_log")
+FIGURES_PER_ORBIT_AND_COMBO = 10  # 4 pitch grids x given/raw + the instrument grid x given/raw
+SCALE_NOOP_LIMIT_S = 30.0  # run 3, the resume of a finished archive
+SCALE_BYTES_PER_ORBIT = 35 << 20  # free disk the phase asks for an orbit: 4 CDFs (~10 MB) and 40 PNGs (~20 MB)
+SCALE_CONTEXT_WAIT_S = 120  # the longest wait for the killed run's CUDA context to leave nvidia-smi
+PORT = "configurable_spectrograms_torch"
+FLAGSHIP = f"{PORT}.cli.batch_multi_plot_FAST_spectrograms"
+#: ``python -c`` body: the flagship CLI run as ``python -m`` runs it (``runpy``).  The CLI leaves through
+#: ``cli.common.clean_exit`` (``os._exit``), wrapped here to first write what the process launched,
+#: dispatched and allocated on the card to the JSON file named by the first argument.  A second
+#: argument, where given, replaces the driver's worker threads.
+FLAGSHIP_RUNNER = f"""
+import json, os, runpy, sys
+from {PORT}.cli import common
+from {PORT}.utils import config
+
+report, workers, sys.argv = sys.argv[1], sys.argv[2:], sys.argv[:1]
+real_exit, real_run = common.clean_exit, config.FastBatchConfig.run
+
+
+def run(self):
+    if workers:
+        self.max_workers = int(workers[0])
+    return real_run(self)
+
+
+def clean_exit(code=0):
+    kernels = sys.modules.get("{PORT}.ops.kernels")
+    cache = sys.modules.get("{PORT}.render.device_cache")
+    torch = sys.modules.get("torch")
+    cuda = torch is not None and torch.cuda.is_initialized()
+    body = {{"launches": dict(kernels.LAUNCHES) if kernels else {{}},
+             "upload": cache.upload_telemetry() if cache else {{}},
+             "max_memory_allocated": sum(map(torch.cuda.max_memory_allocated, range(torch.cuda.device_count())))
+             if cuda else 0}}
+    with open(report + ".tmp", "w") as f:
+        json.dump(body, f)
+    os.replace(report + ".tmp", report)
+    real_exit(code)
+
+
+common.clean_exit, config.FastBatchConfig.run = clean_exit, run
+runpy.run_module("{FLAGSHIP}", run_name="__main__", alter_sys=True)
+"""
+
+
+def inject_faults(mapping: dict, faults, seed: int) -> list[dict]:
+    """Corrupt files of a synthetic archive as tools/scale_run.py does; the faults injected, by orbit.
+
+    *faults* holds (orbit offset in the sorted archive, instrument, kind):
+    ``truncate`` keeps the first 60% of the file's bytes (a download cut
+    mid-transfer), ``garbage`` replaces its first 256 bytes with bytes
+    drawn from ``numpy.random.default_rng(seed)`` (corrupt storage),
+    ``empty`` leaves zero bytes (a failed write).
+    """
+    rng = np.random.default_rng(seed)
+    orbits = sorted(mapping)
+    injected = []
+    for offset, inst, kind in faults:
+        orbit = orbits[offset]
+        path = mapping[orbit][inst]
+        with open(path, "rb") as f:
+            blob = f.read()
+        if kind == "truncate":
+            blob = blob[: int(len(blob) * 0.6)]
+        elif kind == "garbage":
+            n = min(256, len(blob))
+            blob = rng.bytes(n) + blob[n:]
+        elif kind == "empty":
+            blob = b""
+        else:
+            raise ValueError(f"unknown fault kind {kind!r}")
+        with open(path, "wb") as f:
+            f.write(blob)
+        injected.append({"orbit": orbit, "instrument": inst, "kind": kind})
+    return injected
+
+
+def _synth_orbits(root: str, orbits: list, shape: tuple, cusp: str) -> dict:
+    """One worker's share of the [scale] archive (a spawned process: numpy and the port's data layer only)."""
+    from configurable_spectrograms_torch.data.synthetic import synth_fast_archive
+
+    return synth_fast_archive(root, orbits, n_time=shape[0], n_angle=shape[1], n_energy=shape[2], cusp_csv_path=cusp)
+
+
+def synth_scale_archive(tmp: str, n_orbits: int) -> tuple[str, dict, str]:
+    """The [scale] archive under *tmp*/scale_data, synthesised by one spawned process per core; its root, files and cusp table."""
+    import concurrent.futures
+    import multiprocessing
+
+    root, cusp = os.path.join(tmp, "scale_data"), os.path.join(tmp, "scale_cusp.tsv")
+    orbits = list(range(SCALE_FIRST_ORBIT, SCALE_FIRST_ORBIT + n_orbits))
+    workers = max(1, min(n_orbits, os.cpu_count() or 1))
+    chunks = [orbits[k * n_orbits // workers:(k + 1) * n_orbits // workers] for k in range(workers)]
+    parts = [os.path.join(tmp, f"scale_cusp_{k}.tsv") for k in range(workers)]
+    mapping = {}
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        for part in pool.map(_synth_orbits, [root] * workers, chunks, [SCALE_SHAPE] * workers, parts):
+            mapping.update(part)
+    rows = []
+    for k, part in enumerate(parts):  # one cusp table, in orbit order
+        with open(part) as f:
+            lines = f.read().rstrip("\n").splitlines()
+        rows += lines if k == 0 else lines[1:]
+        os.remove(part)
+    with open(cusp, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return root, mapping, cusp
+
+
+def tree_listing(path: str) -> dict[str, tuple[int, int]]:
+    """Every file and directory under *path* (symlinks not followed): its size and mtime in ns."""
+    out = {}
+    for base, dirs, files in os.walk(path):
+        for name in dirs + files:
+            full = os.path.join(base, name)
+            st = os.lstat(full)
+            out[os.path.relpath(full, path)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def install_copy(site: str) -> float:
+    """Install the port as a user's ``pip install`` leaves it: the package alone in *site* (no pyproject.toml), byte-compiled."""
+    import compileall
+    import shutil
+
+    t0 = time.perf_counter()
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), PORT)
+    shutil.copytree(src, os.path.join(site, PORT), ignore=shutil.ignore_patterns("__pycache__"))
+    require(compileall.compile_dir(site, quiet=1), f"byte-compiling {site} failed")
+    require(not os.path.exists(os.path.join(site, "pyproject.toml")), "the installed copy must not look like a checkout")
+    return time.perf_counter() - t0
+
+
+def gpu_memory_used_mib() -> int:
+    """The card's used memory in MiB, all processes together (nvidia-smi)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return int(out.splitlines()[0].strip())
+
+
+class GpuMemorySampler:
+    """Samples nvidia-smi about once a second: the peak of the GPU memory a child run adds.
+
+    Two readings, each over its value at the start (this process's own
+    context among it, idle while the child runs): the compute apps'
+    ``used_memory`` rows and the card's ``memory.used``.  nvidia-smi in a
+    container may list the host's pids or one pid for several processes,
+    so a child is known by the rows and MiB it adds, not by its pid.
+    """
+
+    def __init__(self):
+        import threading
+
+        start = compute_apps()
+        self.baseline_rows, self.baseline_mib = len(start), sum(mib for _, mib in start)
+        self.baseline_used = gpu_memory_used_mib()
+        self.peak_mib = self.peak_used_mib = None  # stay None (not measured) where nvidia-smi never lists the child
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            rows = compute_apps()
+            if len(rows) > self.baseline_rows:
+                self.peak_mib = max(self.peak_mib or 0, sum(mib for _, mib in rows) - self.baseline_mib)
+                self.peak_used_mib = max(self.peak_used_mib or 0, gpu_memory_used_mib() - self.baseline_used)
+            self._stop.wait(1.0)
+
+    def stop(self) -> "GpuMemorySampler":
+        self._stop.set()
+        self._thread.join()
+        return self
+
+
+def png_orbit_combo(rel: str) -> tuple[int, str]:
+    """(orbit, ``y_z`` combo) of a flagship PNG, from its directory and name."""
+    import re
+
+    m = re.search(r"_y-(linear|log)_z-(linear|log)_", os.path.basename(rel))
+    require(m is not None, f"{rel}: no scale combo in the name")
+    return int(os.path.basename(os.path.dirname(rel))), f"{m.group(1)}_{m.group(2)}"
+
+
+def _decode_pngs(paths: list) -> list:
+    """The paths among *paths* that do not decode in full (a spawned process)."""
+    from PIL import Image
+
+    bad = []
+    for path in paths:
+        try:
+            with Image.open(path) as img:
+                img.load()
+        except Exception as exc:  # noqa: BLE001 - any decoder error is the finding
+            bad.append(f"{path}: {exc}")
+    return bad
+
+
+def start_decoding(cwd: str, rels: list):
+    """Start decoding the PNGs of *rels*, one spawned process per core; the pool and its futures (see :func:`undecodable`)."""
+    import concurrent.futures
+    import multiprocessing
+
+    paths = [os.path.join(cwd, r) for r in sorted(rels)]
+    workers = max(1, min(len(paths), os.cpu_count() or 1))
+    pool = concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+    return pool, [pool.submit(_decode_pngs, paths[k::workers]) for k in range(workers)]
+
+
+def undecodable(decoding) -> list:
+    """The PNGs that did not decode, once every process that :func:`start_decoding` started has ended."""
+    pool, futures = decoding
+    try:
+        return [b for fut in futures for b in fut.result()]
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def flagship_process(cwd: str, env: dict, run: str, report: str, kill_when=None, timeout: float = 300) -> dict:
+    """One run of the flagship CLI in *cwd* (``FLAGSHIP_RUNNER``, its launch report to *report*); SIGKILLed once ``kill_when()``.
+
+    Its output goes to *cwd*/../scale_{run}.out; its GPU memory is sampled
+    from nvidia-smi; a run that outlives *timeout* seconds is killed and
+    fails the phase.
+    """
+    import signal
+
+    sampler = GpuMemorySampler()
+    t0 = time.perf_counter()
+    with open(os.path.join(os.path.dirname(cwd), f"scale_{run}.out"), "w") as out:
+        proc = subprocess.Popen([sys.executable, "-c", FLAGSHIP_RUNNER, report], cwd=cwd, env=env, stdout=out,
+                                stderr=subprocess.STDOUT, start_new_session=True)
+    killed = False
+    try:
+        while proc.poll() is None:
+            if kill_when is not None and kill_when():
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+                killed = True
+                break
+            require(time.perf_counter() - t0 < timeout, f"[scale] run {run} still running after {timeout:.0f} s")
+            time.sleep(0.25)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        sampler.stop()
+    return {"rc": proc.returncode, "seconds": time.perf_counter() - t0, "killed": killed,
+            "peak_gpu_mib": sampler.peak_mib, "peak_gpu_used_mib": sampler.peak_used_mib,
+            "baseline_rows": sampler.baseline_rows}
+
+
+def wait_for_context_gone(run: dict) -> float:
+    """Seconds until the killed run's CUDA context left nvidia-smi's compute apps (bounded)."""
+    t0 = time.perf_counter()
+    while True:
+        apps = compute_apps()
+        if len(apps) <= run["baseline_rows"]:
+            return time.perf_counter() - t0
+        require(time.perf_counter() - t0 < SCALE_CONTEXT_WAIT_S,
+                f"the killed run's CUDA context is still listed after {SCALE_CONTEXT_WAIT_S} s: {apps}")
+        time.sleep(0.5)
+
+
+def run_scale(records: dict, n_orbits: int, tmp: str, device: str = "cuda") -> dict:
+    """[scale]: the flagship CLI of an installed copy of the port over an archive with corrupt CDFs, killed and resumed.
+
+    The port's counterpart of tools/scale_run.py on the card (module docstring).
+    *device* is the child's ``CST_TORCH_DEVICE``: ``cpu`` rehearses the phase
+    where no card is (its CPU tensors launch no kernel, and nvcc builds nothing).
+    """
+    import filecmp
+    import shutil
+
+    t_phase = time.perf_counter()
+    on_card = device != "cpu"
+    free = shutil.disk_usage(tmp).free
+    need = n_orbits * SCALE_BYTES_PER_ORBIT
+    require(free > need, f"[scale] needs ~{need / 1e9:.1f} GB free under {tmp}; {free / 1e9:.1f} GB are")
+    t0 = time.perf_counter()
+    root, mapping, cusp = synth_scale_archive(tmp, n_orbits)
+    faults = inject_faults(mapping, SCALE_FAULTS, SCALE_SEED)
+    fault_orbits = {f["orbit"] for f in faults}
+    archive_bytes = sum(os.path.getsize(p) for paths in mapping.values() for p in paths.values())
+    say("scale", step="archive", orbits=f"{min(mapping)}-{max(mapping)}", n_orbits=n_orbits,
+        shape="x".join(map(str, SCALE_SHAPE)), instruments=4, files=4 * n_orbits, bytes=archive_bytes,
+        free_disk_bytes=free, synth_s=f"{time.perf_counter() - t0:.2f}",
+        faults=",".join(f"{f['orbit']}:{f['instrument']}:{f['kind']}" for f in faults))
+
+    site, home = os.path.join(tmp, "site"), os.path.join(tmp, "home")
+    os.makedirs(home)
+    install_s = install_copy(site)
+    site_before = tree_listing(site)
+    cache = os.path.join(home, ".cache", PORT)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("CST_") and k not in ("PYTHONPATH", "HOME")}
+    env.update(PYTHONPATH=site, HOME=home, CST_RENDER_BACKEND="device", CST_TORCH_DEVICE=device)
+    say("scale", step="install", site=site, files=len(site_before), byte_compile_s=f"{install_s:.2f}",
+        cache=cache, pythonpath="site only", native_cache_dir="unset")
+
+    cwd = batch_cwd(os.path.join(tmp, "scale_device"), root, cusp)
+    good = sorted(set(mapping) - fault_orbits)
+    floor = len(good) * FIGURES_PER_ORBIT_AND_COMBO * len(SCALE_COMBOS)
+    expected = n_orbits * FIGURES_PER_ORBIT_AND_COMBO * len(SCALE_COMBOS)
+    kill_at = -(-expected // 3)
+    reports = {run: os.path.join(tmp, f"scale_launches_{run}.json") for run in ("1", "2", "3", "host")}
+    progress_path = os.path.join(cwd, "batch_multi_plot_FAST_progress.json")
+
+    def cursors() -> dict:
+        """Each combo's cursor in the progress JSON (written whole by ``os.replace``), None where not flushed yet."""
+        try:
+            with open(progress_path) as f:
+                state = json.load(f)
+        except FileNotFoundError:
+            state = {}
+        return {combo: state.get(f"{combo}_last_orbit") for combo in SCALE_COMBOS}
+
+    # Run 1: killed once a third of the figures exist and a ledger has flushed a cursor, so that run 2
+    # resumes past recorded orbits (each ledger flushes every 10 of its jobs).
+    one = flagship_process(cwd, env, "1", reports["1"], timeout=300 + 6 * n_orbits,
+                           kill_when=lambda: len(pngs_of(cwd)) >= kill_at and any(c is not None for c in cursors().values()))
+    require(one["killed"], f"[scale] run 1 exited {one['rc']} before {kill_at} PNGs and a cursor existed")
+    gone_s = wait_for_context_gone(one)
+    landed = pngs_of(cwd)
+    at_kill = cursors()
+    # What the ledger recorded at the kill: each combo's good orbits up to its cursor.
+    recorded = {combo: {o for o in good if at_kill[combo] is not None and o <= at_kill[combo]} for combo in SCALE_COMBOS}
+    keys = collections.Counter(png_orbit_combo(rel) for rel in landed)
+    unrecorded = sum(n for (orbit, combo), n in keys.items() if orbit not in recorded[combo])
+    missing = {f"{o}:{c}": keys[o, c] for c in SCALE_COMBOS for o in recorded[c]
+               if keys[o, c] != FIGURES_PER_ORBIT_AND_COMBO}
+    builds = {}
+    for log in glob.glob(os.path.join(cwd, "batch_multi_plot_FAST_log_*.log")):
+        with open(log) as f:
+            for line in f:
+                if "[BUILD] " in line:
+                    what = "kernels" if "CUDA kernels" in line else "png_encoder"
+                    builds[what] = float(line.split(" built in ")[1].split(" s")[0])
+    libs = {"kernels": glob.glob(os.path.join(cache, "libcst_kernels_*.so")),
+            "png_encoder": glob.glob(os.path.join(cache, "libfastpng-*.so"))}
+    say("scale", run=1, rc=one["rc"], killed="yes", seconds=f"{one['seconds']:.2f}", kill_at=kill_at,
+        pngs_written=len(landed), cursors_at_kill=json.dumps(at_kill).replace(" ", ""),
+        recorded_pngs_at_kill=sum(keys[o, c] for c in SCALE_COMBOS for o in recorded[c]),
+        unrecorded_pngs_at_kill=unrecorded, recorded_pngs_missing=len(missing), peak_gpu_mib=one["peak_gpu_mib"] or "not_measured",
+        peak_gpu_used_mib=one["peak_gpu_used_mib"] or "not_measured",
+        context_gone_s=f"{gone_s:.2f}", **{f"build_{k}_s": f"{v:.2f}" for k, v in sorted(builds.items())})
+    require(any(recorded.values()), f"[scale] no ledger had recorded a good orbit at the kill: cursors {at_kill}")
+    require(not missing, f"[scale] the ledger recorded figures that are not on disk after the kill: {missing}")
+    want_builds = {"kernels", "png_encoder"} if on_card else {"png_encoder"}
+    require(want_builds <= set(builds), f"[scale] run 1 logged builds of {sorted(builds)}, not of {sorted(want_builds)}")
+    require(all(len(libs[k]) == 1 for k in want_builds), f"[scale] libraries in {cache}: {libs}")
+
+    # Run 2: completes the archive.
+    two = flagship_process(cwd, env, "2", reports["2"], timeout=300 + 12 * n_orbits)
+    require(two["rc"] == 0, f"[scale] run 2 exited {two['rc']} (see scale_2.out)")
+    after = pngs_of(cwd)
+    rewritten = sorted(r for r in landed if after.get(r) != landed[r])
+    with open(reports["2"]) as f:
+        report2 = json.load(f)
+    launches = report2["launches"]
+    tmp_left = glob.glob(os.path.join(cwd, "FAST_plots", "**", "*.tmp-*"), recursive=True)
+    with open(progress_path) as f:
+        progress = json.load(f)
+    error_keys = {k: v for k, v in sorted(progress.items())
+                  if isinstance(v, list) and v and ("error" in k or "timed_out" in k)}
+    flagged = {o for v in error_keys.values() for o in v}
+    say("scale", run=2, rc=two["rc"], seconds=f"{two['seconds']:.2f}", pngs_written=len(after) - len(landed),
+        pngs=len(after), floor=floor, redone_figures=unrecorded, rewritten=len(rewritten),
+        tmp_files_left=len(tmp_left), peak_gpu_mib=two["peak_gpu_mib"] or "not_measured",
+        peak_gpu_used_mib=two["peak_gpu_used_mib"] or "not_measured",
+        max_memory_allocated_mib=f"{report2['max_memory_allocated'] / 2**20:.1f}", launches=json.dumps(launches).replace(" ", ""))
+    say("scale", error_keys=json.dumps(error_keys).replace(" ", ""))
+    require(len(after) >= floor, f"[scale] {len(after)} PNGs, fewer than {floor} (9 good orbits' worth)")
+    require(not tmp_left, f"[scale] *.tmp-* left after run 2: {tmp_left[:5]}")
+    require(flagged == fault_orbits, f"[scale] error keys name orbits {sorted(flagged)}, the faults are in "
+                                     f"{sorted(fault_orbits)}")
+    if on_card:
+        require(min(launches.get("collapse", 0), launches.get("fused_quantize", 0)) > 0,
+                f"[scale] run 2 did not launch both kernels: {launches}")
+        add_launches(records, launches)
+    # Run 3: the resume of a finished archive writes and launches nothing.
+    state_before = {k: v for k, v in tree_listing(cwd).items() if not k.startswith("FAST_data") and not k.endswith(".log")}
+    three = flagship_process(cwd, env, "3", reports["3"])
+    state_after = {k: v for k, v in tree_listing(cwd).items() if not k.startswith("FAST_data") and not k.endswith(".log")}
+    with open(progress_path) as f:
+        progress_again = json.load(f)
+    changed = sorted(k for k in set(state_before) | set(state_after)
+                     if state_before.get(k) != state_after.get(k) and k != "batch_multi_plot_FAST_progress.json")
+    with open(reports["3"]) as f:
+        report3 = json.load(f)
+    say("scale", run=3, rc=three["rc"], seconds=f"{three['seconds']:.2f}", files_changed=len(changed),
+        progress_json="same content" if progress_again == progress else "changed",
+        launches=json.dumps(report3["launches"]).replace(" ", ""),
+        dispatches=report3["upload"].get("dispatches", 0))
+    require(three["rc"] == 0, f"[scale] run 3 exited {three['rc']}")
+    require(not changed and progress_again == progress, f"[scale] run 3 wrote {changed or 'the progress JSON'}")
+    require(sum(report3["launches"].values()) == 0 and report3["upload"].get("dispatches", 0) == 0,
+            f"[scale] run 3 dispatched: {report3}")
+    require(three["seconds"] <= SCALE_NOOP_LIMIT_S, f"[scale] run 3 took {three['seconds']:.1f} s")
+    site_after = tree_listing(site)
+    require(site_after == site_before, "[scale] the installed copy's tree changed: "
+            f"{sorted(set(site_after.items()) ^ set(site_before.items()))[:5]}")
+
+    # The host backend, uninterrupted, over orbits 0 and 1 (1 is faulted): every raw-named PNG of the
+    # device tree held to its twin (given-named ones hold the raw or the given job's render, whichever
+    # saved first; [batch] compares raw-named PNGs for that reason).  Every PNG of the device tree is
+    # decoded meanwhile.
+    decoding = start_decoding(cwd, list(after))
+    twin_orbits = sorted(mapping)[:2]
+    twin = os.path.join(tmp, "scale_host")
+    for orbit in twin_orbits:
+        for path in mapping[orbit].values():
+            link = os.path.join(twin, "FAST_data", os.path.relpath(path, root))
+            os.makedirs(os.path.dirname(link), exist_ok=True)
+            os.symlink(path, link)
+    shutil.copy(cusp, os.path.join(twin, "FAST_Cusp_Indices.csv"))
+    host = flagship_process(twin, dict(env, CST_RENDER_BACKEND="host"), "host", reports["host"],
+                            timeout=300 + 12 * len(twin_orbits))
+    bad = undecodable(decoding)
+    require(not bad, f"[scale] PNGs that do not decode: {bad[:5]}")
+    require(host["rc"] == 0, f"[scale] the host run exited {host['rc']} (see scale_host.out)")
+    host_pngs = pngs_of(twin)
+    dev_pngs = sorted(r for r in after if png_orbit_combo(r)[0] in twin_orbits)
+    require(sorted(host_pngs) == dev_pngs, "[scale] device and host trees of orbits "
+            f"{twin_orbits} differ: {sorted(set(host_pngs) ^ set(dev_pngs))[:5]}")
+    apart = same = 0
+    raw = [r for r in dev_pngs if "_raw-" in r]
+    for rel in raw:
+        if filecmp.cmp(os.path.join(cwd, rel), os.path.join(twin, rel), shallow=False):  # equal bytes need no decoding
+            same += 1
+            continue
+        n = png_bins_apart(os.path.join(cwd, rel), os.path.join(twin, rel), rel.rsplit("-", 1)[1][: -len(".png")])
+        apart += n
+        same += n == 0
+    figures_per_s = len(after) / (one["seconds"] + two["seconds"])
+    say("scale", compare="device vs host", orbits=",".join(map(str, twin_orbits)), files=len(dev_pngs),
+        raw_pngs=len(raw), raw_pixel_identical=same, pixels_one_bin_apart=apart, host_seconds=f"{host['seconds']:.2f}")
+    summary = {"orbits": n_orbits, "pngs": len(after), "floor": floor, "figures_per_s_runs_1_2": round(figures_per_s, 3),
+               "run_s": [round(r["seconds"], 2) for r in (one, two, three)], "pngs_written": [len(landed), len(after) - len(landed), 0],
+               "redone_figures": unrecorded, "peak_gpu_mib": [one["peak_gpu_mib"], two["peak_gpu_mib"]],
+               "peak_gpu_used_mib": [one["peak_gpu_used_mib"], two["peak_gpu_used_mib"]],
+               "run2_max_memory_allocated": report2["max_memory_allocated"],
+               "build_s": builds, "context_gone_s": round(gone_s, 2), "error_keys": len(error_keys)}
+    say("scale", summary=json.dumps(summary).replace(" ", ""), phase_s=f"{time.perf_counter() - t_phase:.2f}",
+        nvidia_smi=repr(nvidia_smi_line()) if on_card else "'no card'")
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true", help="build and check the kernels only")
@@ -2566,6 +3086,8 @@ def main() -> int:
                     help="only time the flagship batch with each render back-end switch off alone, N rounds")
     ap.add_argument("--sweep-seeds", metavar="START:COUNT", default=None,
                     help="only build the kernels and sweep them over seeds START .. START + COUNT - 1")
+    ap.add_argument("--scale-orbits", type=int, metavar="N", default=None,
+                    help="only build the kernels and run [scale] over an archive of N orbits")
     args = ap.parse_args()
     sweep = (0, SWEEP_SEEDS)
     if args.sweep_seeds is not None:
@@ -2609,6 +3131,13 @@ def main() -> int:
         print(json.dumps({"switches": per}))
         return 0
 
+    if args.scale_orbits is not None:
+        with tempfile.TemporaryDirectory(prefix="cst_chip_scale_") as tmp:
+            got = run_scale({}, args.scale_orbits, tmp)
+        print(smi)
+        print(json.dumps({"scale": got}))
+        return 0
+
     if args.sweep_seeds is not None:
         got = run_sweep(device, *sweep)
         print(smi)
@@ -2624,6 +3153,8 @@ def main() -> int:
         run_font_and_png()
         run_e2e(records)
         run_audio(records, samples)
+        with tempfile.TemporaryDirectory(prefix="cst_chip_scale_") as tmp:
+            run_scale(records, SCALE_ORBITS, tmp)
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -29,6 +29,43 @@ Layer map:
 * ``ops``    -- kernels, the audio STFT and the eager-torch panel analysis
 * ``render`` -- bucketed dispatch, host backend, figure composition
 * ``fast``   -- FAST mission layer (batch driver, extrema pre-pass, per-orbit render)
+
+Importing the package imports no torch and starts no CUDA; it sets one
+piece of process-wide allocator state, as the JAX package's import does
+(below).
 """
+
+import os as _os
+
+# numpy >= 1.22 madvise(MADV_HUGEPAGE)s every >=4 MB allocation.  On hosts
+# with transparent_hugepage=madvise, that routes each fresh figure canvas /
+# collapse buffer through 2 MB-page allocation, whose latency under memory
+# fragmentation is erratic.  The pipeline reuses its large buffers (canvas
+# pool, thread-local encoder scratch), so huge pages buy little; default
+# them off unless the user set the knob themselves.  The runtime setter
+# covers interpreters where numpy was already imported (e.g. by
+# sitecustomize) before this package.  Embedders that do not want an
+# import to touch process-global allocator state can opt out with
+# CST_HUGEPAGE_TUNING=0 (the override also never runs when
+# NUMPY_MADVISE_HUGEPAGE is already set by the user).
+if (
+    _os.environ.get("CST_HUGEPAGE_TUNING", "1") != "0"
+    and "NUMPY_MADVISE_HUGEPAGE" not in _os.environ
+):
+    _os.environ["NUMPY_MADVISE_HUGEPAGE"] = "0"
+    try:
+        from numpy._core import multiarray as _ma  # numpy >= 2
+    except ImportError:  # pragma: no cover - numpy 1.x
+        try:
+            from numpy.core import multiarray as _ma
+        except ImportError:
+            _ma = None
+    if _ma is not None:
+        try:
+            _ma._set_madvise_hugepage(False)
+        except (AttributeError, TypeError):  # pragma: no cover
+            pass
+    del _ma
+del _os
 
 __version__ = "0.1.0"

@@ -66,6 +66,9 @@ class _ProgressLedger:
 
     def __init__(self, path: str | None, y_scale: str, z_scale: str, flush_batch_size: int):
         self.path = path
+        self._jobs_left: dict[int, int] = {}  # unfinished jobs per declared orbit (expect(), then advance())
+        self._order: list[int] = []  # the orbits in cursor order
+        self._next = 0  # index into _order of the first orbit with a job left
         self.cursor_key = f"{y_scale}_{z_scale}_last_orbit"
         self.error_key = f"{y_scale}_{z_scale}_error_plotting"
         self.orbit_timeout_key = f"orbit_{y_scale}_{z_scale}_timed_out"
@@ -115,12 +118,49 @@ class _ProgressLedger:
         except OSError as exc:
             log_exception("[FAIL] Could not write progress JSON", exc, level="error")
 
+    def expect(self, jobs: list[int]) -> None:
+        """Declare this run's jobs (one orbit number per job); the cursor passes their orbits in ascending order.
+
+        The cursor is the last orbit of an unbroken run of finished orbits:
+        it passes an orbit only once all its jobs completed.  The reference
+        keeps the most recently completed orbit (docs/parity.md, "The
+        progress cursor is the most recently completed orbit"), so after a
+        crash its resume skips an orbit whose other job, or whose own job
+        behind a later orbit's, never finished, and that orbit's figures
+        stay missing or half written.  Whenever jobs finish in order (one
+        worker) both rules name the same orbit, so a finished run leaves the
+        same progress JSON.
+        """
+        self._jobs_left = {}
+        for orbit in jobs:
+            self._jobs_left[orbit] = self._jobs_left.get(orbit, 0) + 1
+        self._order = sorted(self._jobs_left)
+        self._next = 0
+
+    def advance(self, state: dict[str, Any], orbit: int) -> None:
+        """Move the cursor in *state* for one completed job of *orbit*.
+
+        Each completion of an orbit that :meth:`expect` did not declare is
+        appended to the cursor order as a finished entry, so with nothing
+        declared the cursor is the orbit of the last completed job, the
+        reference's rule.
+        """
+        if orbit in self._jobs_left:
+            self._jobs_left[orbit] = max(0, self._jobs_left[orbit] - 1)
+        else:
+            self._order.append(orbit)
+        start = self._next
+        while self._next < len(self._order) and self._jobs_left.get(self._order[self._next], 0) == 0:
+            self._next += 1
+        if self._next > start:
+            state[self.cursor_key] = self._order[self._next - 1]
+
     def record(self, orbit: int, result: dict[str, Any]) -> None:
         """Fold one orbit result into the cumulative taxonomy."""
         if self.path is None:
             return
         state = self.state()
-        state[self.cursor_key] = orbit
+        self.advance(state, orbit)
         state.setdefault(self.error_key, [])
         state.setdefault(self.orbit_timeout_key, [])
         status = result.get("status")
@@ -362,7 +402,7 @@ def _consume_result(
         # (reference fast/batch_directory.py:266-290).
         if ledger.path is not None:
             state = ledger.state()
-            state[ledger.cursor_key] = orbit
+            ledger.advance(state, orbit)
             add_to_orbit_list(state, ledger.error_key, orbit)
             reason = classify_error_reason(str(exc))
             add_to_orbit_list(state, f"unknown_{ledger.y_scale}_{ledger.z_scale}_error-{reason}", orbit)
@@ -541,6 +581,7 @@ def FAST_plot_spectrograms_directory(
         jobs.append((worker_args(orbit, None), orbit, None))
         if global_extrema is not None:
             jobs.append((worker_args(orbit, global_extrema), orbit, None))
+    ledger.expect([orbit for _, orbit, _ in jobs])
 
     results: list[dict[str, Any]] = []
     show_bar = bool(use_tqdm) if use_tqdm is not None else False
@@ -684,6 +725,8 @@ def FAST_plot_spectrograms_multi(
             jobs.append((worker_args(orbit, i, None), orbit, i))
             if extrema_by_combo[i] is not None:
                 jobs.append((worker_args(orbit, i, extrema_by_combo[i]), orbit, i))
+    for i, ledger in enumerate(ledgers):
+        ledger.expect([orbit for _, orbit, combo in jobs if combo == i])
 
     results_by_combo: list[list[dict[str, Any]]] = [[] for _ in normalized]
     show_bar = bool(use_tqdm) if use_tqdm is not None else False

@@ -4,9 +4,12 @@ Every ``csrc/*.cu`` file is compiled to an object by its own ``nvcc``
 process, all started together, and one more ``nvcc`` links the objects
 into a shared library with a plain C interface for Hopper (``sm_90a``),
 which :mod:`.kernels` loads with :mod:`ctypes`.  The library lands in
-``build/cst_torch/`` at the checkout root, named by a hash of the sources
-and flags, so an edited kernel never loads a stale build.  Nothing here
-runs at import time: the first kernel launch builds.
+:func:`cache_dir` (``build/cst_torch/`` in a source checkout, else a
+per-user cache), named by a hash of the sources and flags, so an edited
+kernel never loads a stale build.  Nothing here runs at import time: the
+first kernel launch builds.
+
+A build writes one ``[BUILD]`` line with its seconds to the run's log.
 
 Flags: ``-fmad=false`` keeps every product rounded the way numpy and XLA
 round it, and there is no ``--use_fast_math`` (``log10f`` stays the
@@ -25,8 +28,10 @@ import threading
 import time
 from pathlib import Path
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cst_torch"
+from configurable_spectrograms_torch.utils.logging import log_message
+
+PACKAGE = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +46,23 @@ _SIGNATURES = {
     "cst_fused_quantize": [_P] * 8 + [_I] + [_P] * 7 + [_I] * 5 + [_P],
     "cst_stft_power": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
 }
+
+
+def cache_dir() -> Path:
+    """The directory both native libraries of the port (these kernels, ``render.fastpng``'s encoder) build into.
+
+    ``CST_NATIVE_CACHE_DIR`` when it is set (the JAX package's knob);
+    otherwise, in a source checkout (the package's parent directory holds
+    the repository's ``pyproject.toml``), ``build/cst_torch/`` there;
+    otherwise ``~/.cache/configurable_spectrograms_torch/``, so an installed
+    package builds on a read-only or shared install and never writes into
+    its own tree.
+    """
+    if os.environ.get("CST_NATIVE_CACHE_DIR"):
+        return Path(os.environ["CST_NATIVE_CACHE_DIR"])
+    if (PACKAGE.parent / "pyproject.toml").is_file():
+        return PACKAGE.parent / "build" / "cst_torch"
+    return Path.home() / ".cache" / "configurable_spectrograms_torch"
 
 
 def _sources() -> list[Path]:
@@ -63,7 +85,7 @@ def library_path() -> Path:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libcst_kernels_{h.hexdigest()[:16]}.so"
+    return cache_dir() / f"libcst_kernels_{h.hexdigest()[:16]}.so"
 
 
 def _run_all(cmds: list[list[str]]) -> list[tuple[int, str]]:
@@ -80,10 +102,10 @@ def build() -> Path:
     if lib.exists():
         BUILD_INFO.update(seconds=0.0, path=str(lib))
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix=f"{lib.stem}-", dir=BUILD_DIR) as work:
+    with tempfile.TemporaryDirectory(prefix=f"{lib.stem}-", dir=lib.parent) as work:
         srcs = sorted(CSRC.glob("*.cu"))
         objs = [os.path.join(work, f"{src.stem}.o") for src in srcs]
         results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for src, obj in zip(srcs, objs)])
@@ -97,6 +119,7 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed ({rc}):\n{out}")
         os.replace(tmp, lib)
     BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log, path=str(lib))
+    log_message(f"[BUILD] CUDA kernels built in {BUILD_INFO['seconds']:.2f} s: {lib}", force_flush=True)
     return lib
 
 

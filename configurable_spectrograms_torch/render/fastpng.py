@@ -9,14 +9,18 @@ figure canvas, and alpha-blends cached text tiles.  Each call releases
 the interpreter lock for its whole run (ctypes does), so the batch
 driver's worker threads encode in parallel.
 
-The library is compiled with ``g++`` at first use into ``build/cst_torch/``
-at the checkout root, named by a digest of the source and of this host's
-CPU flags (the build uses ``-march=native``), once per process under a
-lock and atomically across processes (a pid-unique temporary, then
-``os.replace``).  Variants are tried in order: libdeflate, then zlib, then
-zlib's stable ABI declared in the source for a host without either header
-(linked against the ``libz.so.1`` Python's own ``zlib`` module loads).
-:data:`BUILD_INFO` records which variant built and the compiler's log.
+The library is compiled with ``g++`` at first use into
+``ops._build.cache_dir()``, the kernel library's directory
+(``CST_NATIVE_CACHE_DIR``, else ``build/cst_torch/`` in a source
+checkout, else ``~/.cache/configurable_spectrograms_torch/``), named by
+a digest of the source and of this host's CPU flags (the build uses
+``-march=native``), once per process under a lock and atomically across
+processes (a pid-unique temporary, then ``os.replace``).  Variants are
+tried in order: libdeflate, then zlib, then zlib's stable ABI declared in
+the source for a host without either header (linked against the
+``libz.so.1`` Python's own ``zlib`` module loads).
+:data:`BUILD_INFO` records which variant built and the compiler's log; a
+build writes one ``[BUILD]`` line with its seconds to the run's log.
 
 Unlike the JAX module, nothing falls back to PIL: a failed build raises
 with the compiler's log, and a failed encode raises.  The one contract
@@ -66,10 +70,10 @@ def _host_tag() -> str:
 
 def library_path() -> Path:
     """Where the library for the current source and this host lives."""
-    from configurable_spectrograms_torch.ops._build import BUILD_DIR
+    from configurable_spectrograms_torch.ops._build import cache_dir
 
     digest = hashlib.sha256(SRC.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libfastpng-{digest}-{_host_tag()}.so"
+    return cache_dir() / f"libfastpng-{digest}-{_host_tag()}.so"
 
 
 def _libz_path() -> str:
@@ -156,6 +160,11 @@ def library() -> ctypes.CDLL:
                 raise RuntimeError(f"built the {built} variant but loaded {variant} from {lib_path}")
             BUILD_INFO.update(variant=variant, path=str(lib_path),
                               seconds=time.perf_counter() - t0 if built else 0.0)
+            if built:
+                from configurable_spectrograms_torch.utils.logging import log_message
+
+                log_message(f"[BUILD] PNG encoder ({variant}) built in {BUILD_INFO['seconds']:.2f} s: {lib_path}",
+                            force_flush=True)
             _LIB.append(lib)
         return _LIB[0]
 

@@ -216,14 +216,14 @@ def test_write_png_rgb_raises_instead_of_falling_back(tmp_path):
 
 
 def test_build_info_names_the_variant_and_the_library():
-    from configurable_spectrograms_torch.ops._build import BUILD_DIR
+    from configurable_spectrograms_torch.ops._build import cache_dir
 
     fastpng.library()
     variant = {0: "zlib", 1: "libdeflate", 2: "zlib-abi"}[fastpng.library().fastpng_variant()]
     assert fastpng.BUILD_INFO["variant"] == variant
     assert [name for name, _ in fastpng._variants()][::3] == ["libdeflate", "zlib", "zlib-abi"]  # the order tried
     path = fastpng.BUILD_INFO["path"]
-    assert os.path.dirname(path) == str(BUILD_DIR) and os.path.basename(path) == fastpng.library_path().name
+    assert os.path.dirname(path) == str(cache_dir()) and os.path.basename(path) == fastpng.library_path().name
     assert fastpng._host_tag() in path
 
 
