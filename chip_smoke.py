@@ -5,6 +5,7 @@
                                      # its records carry "launches": null
     python3 chip_smoke.py --sweep-seeds 0:2000  # build + a deep sweep of seeds 0..1999 only
     python3 chip_smoke.py --scale-orbits 325    # build + [scale] over an archive of 325 orbits only
+    python3 chip_smoke.py --sanitize 0:64       # build + [sanitize] with all four tools over 64 sweep seeds only
 
 Phases, one line each, in order:
 
@@ -58,6 +59,32 @@ Phases, one line each, in order:
                off_boundary = cells outside the rule, worst_rel) and one for
                the e2e check; a failing case prints its seed, shapes and
                lane layout, and fails the run after the phase.
+   sanitize -- the kernels through their wrappers over ``sanitize_cases``
+               ([kernel]'s layouts at 512x32x64, the tails of every launch
+               configuration, a mixed-bucket device_render_panels call, the
+               pinned seeds and SANITIZE_SEEDS sweep seeds at
+               SANITIZE_MAX_CELLS): first the two negative controls, then
+               memcheck and racecheck (all four tools under --sanitize),
+               each in a child under compute-sanitizer restricted to the
+               cst_* kernels; where the tool cannot attach to the card, each
+               tool line says status=unsupported.  Then, in this process,
+               the guards: every buffer between poisoned zones, each launch
+               under two poisons and a repeat, and the same controls.  One
+               line per tool and kernel (cases, launches, errors, warnings,
+               seconds) and per control; also whether -lineinfo changed the
+               SASS.  Any error, a crashed child or a control not caught
+               fails the run after the phase.
+   async    -- the render service's asynchronous path (copy stream, pinned
+               staging, cube-cache eviction, coalescer) held bit for bit to
+               the synchronous render of each panel alone: 6 synthetic
+               2048x32x48 cubes, one 8192x64x128 and two sweep cases' panels,
+               ASYNC_ROUNDS rounds from 8 threads, through the coalescer and
+               inline, with CST_DEVICE_CUBE_CACHE_BYTES at 2.5 padded small
+               cubes and owners replaced between rounds; misses above the
+               distinct cubes, hits, the staging peak, and the device's
+               allocated bytes (nothing beyond the resident cubes; after
+               the caches are cleared, what it held before).  One line per
+               round and mode.
    font     -- the golden pitch grid (tests/goldens/fast_pitch_grid_200dpi.png,
                the inputs of tests/test_golden_figures.py) on the host
                backend: the font file must be a real one (the port's bundled
@@ -1522,6 +1549,710 @@ def run_sweep(device, first: int, count: int) -> dict:
     require(not failures, f"[sweep] {len(failures)} case(s) outside their rule: "
             + ", ".join(f"{k} seed {c['seed']}" for k, c in failures[:20]))
     return {"seconds": seconds, "totals": tot, "e2e": e2e}
+
+
+# ---------------------------------------------------------------------------
+# [sanitize]: the three kernels under compute-sanitizer, and between poisoned guard zones
+# ---------------------------------------------------------------------------
+
+SANITIZE_TOOLS = ("memcheck", "racecheck")  # the default run's tools
+SANITIZE_DEEP_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")  # --sanitize START:COUNT
+SANITIZE_SEEDS = 32  # sweep seeds 0 .. SANITIZE_SEEDS - 1 (and the pinned ones) join the default case list
+SANITIZE_MAX_CELLS = 1 << 15  # a sweep case's cube cells and stft_power F * L, small enough for the tools
+SANITIZE_SHAPE = (512, 32, 64)  # [kernel]'s fixed layouts, cut to a size the tools take
+#: stft_power cases (L, hop, F): [kernel]'s two shapes with F cut; 30 s of audio's odd shapes (a 4-byte
+#: copy, an L tail); L = 8 (one stage, half of it zero-filled) with 4-byte and 16-byte copies.
+SANITIZE_STFT = ((1024, 256, 2000), (8192, 2048, 64), (1000, 250, 600), (1000, 200, 600), (8, 3, 1500),
+                 (8, 8, 1500))
+SANITIZE_EXIT = 86  # the children's --error-exitcode
+SANITIZE_TIMEOUT_S = 900  # the longest a child may take
+SANITIZE_UNSUPPORTED = "Device not supported"  # compute-sanitizer's message where it cannot attach to the card
+SANITIZE_KERNELS = (("cst_collapse", "collapse"), ("cst_fused", "fused_quantize"), ("cst_stft", "stft_power"))
+SANITIZE_CONTROLS = (("short_output", "memcheck"), ("unwritten_input", "initcheck"))
+GUARD_BYTES = 1 << 16  # the poisoned zone before and after every buffer of a guarded launch
+GUARD_FILLS = (0xFF, 0x5A, 0xFF)  # each guarded launch's poison byte, run by run: NaN/-1/255, then 0x5A..
+LANE_KEYS = ("cubes", "u_idx", "masks", "t_valid", "e_valid", "t_start", "t_count", "z_bounds")
+
+
+def lanes_case(cubes: np.ndarray, u_idx, masks: np.ndarray, t_valid, z_scale: str = "log", e_valid=None,
+               t_start=None, t_count=None, z_bounds=None) -> dict:
+    """A [sanitize] case of the two lane kernels (sweep_case's keys), with whole windows, every energy and
+    bounds (1, 900) unless given."""
+    U, T, A, E = cubes.shape
+    L = len(u_idx)
+    tv = np.asarray(t_valid, np.int32)
+    return {"cubes": cubes.astype(np.float32), "u_idx": np.asarray(u_idx, np.int32), "masks": masks.astype(bool),
+            "t_valid": tv, "e_valid": np.ones((L, E), bool) if e_valid is None else e_valid,
+            "t_start": np.zeros(L, np.int32) if t_start is None else np.asarray(t_start, np.int32),
+            "t_count": tv.copy() if t_count is None else np.asarray(t_count, np.int32),
+            "z_bounds": np.tile(np.array([[1.0, 900.0]], np.float32), (L, 1)) if z_bounds is None else z_bounds,
+            "z_scale": z_scale, "stft": None}
+
+
+def stft_only_case(L: int, hop: int, F: int, seed: int) -> dict:
+    """A [sanitize] case of stft_power alone: F frames of L samples hop apart of seeded noise and tones."""
+    rng = np.random.default_rng(seed)
+    t = np.arange((F - 1) * hop + L, dtype=np.float64)
+    signal = 0.05 * rng.standard_normal(len(t)) + 0.3 * np.sin(0.07 * t) + 0.2 * np.sin(1.3 * t)
+    return {"cubes": None, "stft": {"F": F, "L": L, "hop": hop, "signal": signal.astype(np.float32)}}
+
+
+def _cube_stack(U: int, T: int, A: int, E: int, seed: int) -> np.ndarray:
+    return np.stack([kernel_inputs(T, A, E, seed=seed + u)["cube"][0] for u in range(U)])
+
+
+def sanitize_tail_cases() -> list[tuple[str, dict]]:
+    """The fixed cases of [sanitize]: [kernel]'s layouts at SANITIZE_SHAPE, and the tails of every launch
+    configuration: T off a row block with t_valid < T, one column vector (E / VEC = 1), E off VEC x blockDim,
+    1 lane and 19 lanes over 3 cubes, an empty pitch mask, a lane with no file rows, stft_power at
+    SANITIZE_STFT; and one device_render_panels call over a mixed bucket of both routes."""
+    T, A, E = SANITIZE_SHAPE
+    x = kernel_inputs(T, A, E, seed=0)
+    cube = x["cube"]
+    cases = []
+    for name, fargs in fused_layouts(x, "cpu"):  # [kernel]'s layouts: the last has an empty pitch mask
+        cubes, u_idx, masks, e_valid, t_valid, t_start, t_count, zb = (a.numpy() for a in fargs)
+        for z in ("log", "linear"):
+            cases.append((f"{name}_{z}", lanes_case(cubes, u_idx, masks, t_valid, z, e_valid=e_valid,
+                                                    t_start=t_start, t_count=t_count, z_bounds=zb)))
+    cases.append(("extrema_4_cubes", lanes_case(_cube_stack(4, T, A, E, 3), np.arange(4), np.ones((4, A), bool),
+                                                [T, T - 37, T - T // 8, 1])))
+    rng = np.random.default_rng(7)
+    odd = _cube_stack(1, 1001, 24, 64, 11)  # T = 1001: off every row block
+    cases.append(("t_tail", lanes_case(odd, [0, 0, 0, 0], rng.random((4, 24)) < 0.6, [1001, 999, 500, 7])))
+    for e in (4, 1, 260, 261):  # E / VEC = 1 (both widths); E off VEC x blockDim (both widths)
+        c = _cube_stack(2, 300, 16, e, 20 + e)
+        cases.append((f"e_{e}", lanes_case(c, [1, 0, 1], rng.random((3, 16)) < 0.6, [300, 299, 150], "linear",
+                                           z_bounds=np.tile(np.array([[0.0, 400.0]], np.float32), (3, 1)))))
+    cases.append(("one_lane", lanes_case(cube, [0], x["masks"][:1], [T - 3])))
+    three = _cube_stack(3, 256, 16, 40, 30)
+    u19 = rng.integers(0, 3, 19)
+    m19 = rng.random((19, 16)) < 0.5
+    m19[4] = False  # an empty pitch mask
+    tv19 = rng.integers(1, 257, 19)
+    tv19[7] = 0  # a lane with no file rows
+    many = lanes_case(three, u19, m19, tv19, "log", z_bounds=np.tile(np.array([[0.5, 800.0]], np.float32), (19, 1)))
+    cases.append(("19_lanes_3_cubes", many))
+    cases += [(f"stft_L{L}_hop{hop}_F{F}", stft_only_case(L, hop, F, seed=L + hop)) for L, hop, F in SANITIZE_STFT]
+    panels = sweep_panels(dict(many, seed=19, shape=three.shape))  # the 19 lanes as panels, both routes
+    cases.append(("render_mixed_bucket", {"cubes": None, "stft": None, "panels": panels}))
+    return cases
+
+
+def sanitize_cases(first: int, count: int) -> list[tuple[str, dict]]:
+    """[sanitize]'s case list: the tail cases, then the sweep's pinned seeds and seeds first .. first + count - 1
+    at SANITIZE_MAX_CELLS."""
+    seeds = [s for s in SWEEP_PINNED_SEEDS if not first <= s < first + count] + list(range(first, first + count))
+    return sanitize_tail_cases() + [(f"sweep_{s}", sweep_case(s, max_cells=SANITIZE_MAX_CELLS)) for s in seeds]
+
+
+def case_kernels(case: dict) -> list[str]:
+    """What a [sanitize] case launches: the lane kernels, stft_power, or a render of panels."""
+    return ((["collapse", "fused_quantize"] if case.get("cubes") is not None else [])
+            + (["stft_power"] if case.get("stft") is not None else [])
+            + (["render_panels"] if case.get("panels") is not None else []))
+
+
+def sanitize_launch(K, case: dict, kernel: str, device, place=None) -> list:
+    """Launch one kernel of a [sanitize] case through its ops.kernels wrapper (or, for ``render_panels``,
+    device_render_panels); its outputs.  *place* puts each host input array on the device."""
+    import torch
+
+    from configurable_spectrograms_torch.ops.stft import _dft_bases, frame_signal
+
+    place = place or (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    if kernel == "render_panels":
+        from configurable_spectrograms_torch.render.dispatch import device_render_panels
+
+        return [async_result_key(r) for r in device_render_panels(case["panels"], 48, 64)]
+    if kernel == "stft_power":
+        s = case["stft"]
+        frames = frame_signal(place(s["signal"]), s["L"], s["hop"])
+        return [K.stft_power(frames, *(place(b) for b in _dft_bases(s["L"])))]
+    x = {k: place(case[k]) for k in LANE_KEYS}
+    lanes = (x["cubes"], x["u_idx"], x["masks"], x["t_valid"])
+    if kernel == "collapse":
+        return [K.collapse_lanes(*lanes)]
+    f = K.fused_quantize_lanes(*lanes[:3], x["e_valid"], x["t_valid"], x["t_start"], x["t_count"], x["z_bounds"],
+                               z_scale=case["z_scale"])
+    return [f["idx"], f["vmin"], f["col_all_nan"]]
+
+
+class Guard:
+    """Device buffers between zones of GUARD_BYTES poison bytes, themselves poisoned until written.
+
+    ``empty`` stands in for ``ops.kernels._empty`` (every output and scratch buffer of a wrapper), ``place``
+    puts an input there.  ``breaches()`` counts the zone bytes that no longer hold the poison: a write past
+    a buffer.  Run a launch under two poisons and compare: an output that depends on the poison read
+    memory no one wrote (a buffer's own poison) or past its end (a zone's).
+    """
+
+    def __init__(self, device, fill: int):
+        self.device, self.fill = device, fill
+        self.zones: list[tuple] = []
+
+    def empty(self, shape: tuple, dtype, device=None):
+        import torch
+
+        n = int(np.prod(shape, dtype=np.int64)) * torch.empty((), dtype=dtype).element_size()
+        body = -(-n // 256) * 256
+        buf = torch.full((2 * GUARD_BYTES + body,), self.fill, dtype=torch.uint8, device=self.device)
+        self.zones.append((buf, n))
+        return buf[GUARD_BYTES:GUARD_BYTES + n].view(dtype).view(shape)
+
+    def place(self, a: np.ndarray):
+        import torch
+
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        out = self.empty(tuple(t.shape), t.dtype)
+        out.copy_(t)
+        return out
+
+    def breaches(self) -> int:
+        return sum(int((buf[:GUARD_BYTES] != self.fill).sum()) + int((buf[GUARD_BYTES + n:] != self.fill).sum())
+                   for buf, n in self.zones)
+
+
+def guarded_launch(K, case: dict, kernel: str, device, fill: int) -> tuple[list[bytes], int]:
+    """One kernel of a case with every buffer guarded and poisoned with *fill*: (its outputs' bytes, zone
+    bytes breached)."""
+    guard = Guard(device, fill)
+    saved = K._empty
+    K._empty = guard.empty
+    try:
+        outs = sanitize_launch(K, case, kernel, device, guard.place)
+        sync()
+    finally:
+        K._empty = saved
+    return [o if isinstance(o, tuple) else o.cpu().numpy().tobytes() for o in outs], guard.breaches()
+
+
+def guard_check(K, case: dict, kernel: str, device) -> list[str]:
+    """What is wrong with one kernel of a case under GUARD_FILLS: zone bytes written, outputs that differ
+    between poisons (or between two runs under one)."""
+    runs = [guarded_launch(K, case, kernel, device, fill) for fill in GUARD_FILLS]
+    faults = [f"{n} guard-zone bytes written under poison {fill:#04x}" for (_, n), fill in zip(runs, GUARD_FILLS) if n]
+    for i, out in enumerate(runs[0][0]):
+        if any(r[0][i] != out for r in runs[1:]):
+            faults.append(f"output {i} differs between the poisons {', '.join(f'{f:#04x}' for f in GUARD_FILLS)}")
+    return faults
+
+
+def sanitize_control(K, name: str, device, guard: "Guard | None" = None) -> list:
+    """A negative control: a launch that is wrong on purpose, through the kernels' C entry points.
+
+    ``short_output``: ``cst_collapse`` called past the wrapper's checks with an output one row too short
+    (memcheck must see the last row's writes; a guard sees its zone written).  ``unwritten_input``: the
+    collapse of a cube that nothing wrote (initcheck must see the reads; under two guard poisons the
+    output follows the poison).  Returns the launch's outputs.
+    """
+    import torch
+
+    from configurable_spectrograms_torch.ops._build import load_library
+
+    U, T, A, E = 2, 64, 8, 16
+    empty = guard.empty if guard is not None else (lambda shape, dtype: torch.empty(shape, dtype=dtype, device=device))
+    rng = np.random.default_rng(5)
+    host = {"u_idx": np.array([0, 1, 0], np.int32), "masks": rng.random((3, A)) < 0.5,
+            "t_valid": np.array([T, T - 9, 10], np.int32)}
+    x = {k: (guard.place(v) if guard is not None else torch.from_numpy(v).to(device)) for k, v in host.items()}
+    if name == "unwritten_input":
+        cubes = empty((U, T, A, E), torch.float32)
+        return [K.collapse_lanes(cubes, x["u_idx"], x["masks"], x["t_valid"])]
+    cubes = (guard.place if guard is not None else lambda a: torch.from_numpy(a).to(device))(
+        _cube_stack(U, T, A, E, 6))
+    out = empty((3, T - 1, E), torch.float32)  # one row too short
+    with torch.cuda.device(device):
+        err = load_library().cst_collapse(cubes.data_ptr(), x["u_idx"].data_ptr(), x["masks"].data_ptr(),
+                                          x["t_valid"].data_ptr(), out.data_ptr(), 3, T, A, E,
+                                          torch.cuda.current_stream(device).cuda_stream)
+    require(err == 0, f"the short-output control did not launch: cudaError {err}")
+    return [out]
+
+
+def sanitizer_child(spec: dict) -> int:
+    """``--sanitizer-child``: run under compute-sanitizer by [sanitize]; launches the case list (or a control)
+    and writes what it launched to ``spec["report"]``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from configurable_spectrograms_torch.ops import kernels as K
+    from configurable_spectrograms_torch.utils.torch_setup import get_device
+
+    device = get_device()
+    report: dict = {"kernels": {}}
+    if spec.get("control"):
+        sanitize_control(K, spec["control"], device)
+        sync()
+    else:
+        for _, case in sanitize_cases(*spec["seeds"]):
+            for kernel in case_kernels(case):
+                before = dict(K.LAUNCHES)
+                t0 = time.perf_counter()
+                sanitize_launch(K, case, kernel, device)
+                sync()
+                rec = report["kernels"].setdefault(kernel, {"cases": 0, "launches": {}, "seconds": 0.0})
+                rec["cases"] += 1
+                rec["seconds"] += time.perf_counter() - t0
+                for k, n in K.LAUNCHES.items():
+                    if n > before[k]:
+                        rec["launches"][k] = rec["launches"].get(k, 0) + n - before[k]
+    with open(spec["report"], "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def compute_sanitizer() -> str:
+    """compute-sanitizer beside nvcc in $CUDA_HOME/bin, else on PATH; the phase fails without it."""
+    import shutil
+
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "compute-sanitizer"),
+                 shutil.which("compute-sanitizer")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise AssertionError("[sanitize] compute-sanitizer is not in $CUDA_HOME/bin or on PATH: the kernels "
+                         "cannot be checked")
+
+
+def parse_sanitizer(text: str) -> dict:
+    """compute-sanitizer's report: whether it could attach (``unsupported``), and its error and warning
+    records as (severity, kernel, text), the kernel from the ``cst_*`` name in the record (``other`` where
+    none is named)."""
+    records, block = [], []
+
+    def close():
+        if block:
+            head = block[0]
+            kernel = next((name for prefix, name in SANITIZE_KERNELS for line in block if prefix in line), "other")
+            records.append(("warning" if head.startswith("Warning") else "error", kernel, "\n".join(block)))
+
+    for raw in text.splitlines():
+        if not raw.startswith("========="):
+            continue
+        line = raw[len("========="):]
+        body = line.strip()
+        if not body or body.startswith(("COMPUTE-SANITIZER", "ERROR SUMMARY", "RACECHECK SUMMARY",
+                                         "Target application returned", "LEAK SUMMARY")):
+            close()
+            block = []
+            continue
+        if line.startswith("     ") and block:  # an indented line continues the record
+            block.append(body)
+            continue
+        close()
+        block = [body]
+    close()
+    import re
+
+    summary = [int(n) for n in re.findall(r"ERROR SUMMARY: (\d+) error", text)]
+    summary += [int(n) for n in re.findall(r"RACECHECK SUMMARY: \d+ hazards? displayed \((\d+) error", text)]
+    return {"unsupported": SANITIZE_UNSUPPORTED in text, "summary_errors": sum(summary),
+            "records": [r for r in records if SANITIZE_UNSUPPORTED not in r[2]]}
+
+
+def run_sanitizer_child(tool: str, spec: dict, log_dir: str) -> dict:
+    """One child of this script under compute-sanitizer's *tool*: its exit code, seconds, parsed report,
+    the child's own report and the path of the tool's log."""
+    name = spec.get("control") or "cases"
+    spec = dict(spec, report=os.path.join(log_dir, f"{tool}_{name}.json"))
+    cmd = [compute_sanitizer(), "--tool", tool, "--error-exitcode", str(SANITIZE_EXIT), "--kernel-name", "kns=cst_",
+           "--report-api-errors", "no", "--print-limit", "10000", "--show-backtrace", "device",
+           sys.executable, os.path.abspath(__file__), "--sanitizer-child", json.dumps(spec)]
+    env = dict(os.environ, CST_TORCH_DEVICE="cuda")
+    if tool in ("memcheck", "initcheck"):  # the caching allocator's segments would hide an access past a tensor
+        env["PYTORCH_NO_CUDA_MEMORY_CACHING"] = "1"
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=SANITIZE_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    log = os.path.join(log_dir, f"{tool}_{name}.log")
+    with open(log, "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    child = {}
+    if os.path.exists(spec["report"]):
+        with open(spec["report"]) as f:
+            child = json.load(f)
+    return {"rc": proc.returncode, "seconds": seconds, "log": log, "child": child,
+            **parse_sanitizer(proc.stdout + "\n" + proc.stderr)}
+
+
+def lineinfo_sass() -> dict:
+    """The kernels' SASS with and without ``-lineinfo`` (``cuobjdump -sass``, less the ``identifier =`` lines
+    that name each source file): a second build without the flag, into a temporary cache directory."""
+    from configurable_spectrograms_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    saved = (_build.NVCC_FLAGS, os.environ.get("CST_NATIVE_CACHE_DIR"), dict(_build.BUILD_INFO))
+    with tempfile.TemporaryDirectory(prefix="cst_nolineinfo_") as tmp:
+        _build.NVCC_FLAGS = tuple(f for f in saved[0] if f != "-lineinfo")
+        os.environ["CST_NATIVE_CACHE_DIR"] = tmp
+        try:
+            plain = _build.build()
+        finally:
+            _build.NVCC_FLAGS = saved[0]
+            if saved[1] is None:
+                os.environ.pop("CST_NATIVE_CACHE_DIR")
+            else:
+                os.environ["CST_NATIVE_CACHE_DIR"] = saved[1]
+            _build.BUILD_INFO.update(saved[2])
+        sass = [[ln for ln in subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                                             check=True, timeout=120).stdout.splitlines()
+                 if not ln.strip().startswith("identifier =")]
+                for lib in (plain, _build.library_path())]
+    return {"identical": sass[0] == sass[1], "lines": len(sass[1]),
+            "lines_differing": sum(a != b for a, b in zip(*sass)) + abs(len(sass[0]) - len(sass[1]))}
+
+
+def run_sanitize(device, first: int, count: int, tools=SANITIZE_TOOLS) -> dict:
+    """The ``[sanitize]`` phase.
+
+    (1) compute-sanitizer: the two negative controls, each in a child of its own, then one child per tool
+    launching :func:`sanitize_cases` through the wrappers; every error record fails the phase (its report
+    printed for the first three), as does a child that crashes or a control that reports nothing.  Where
+    the tool cannot attach to the card (it says SANITIZE_UNSUPPORTED), every tool line says so and no
+    further child starts.  (2) Guards, in this process and on every card: each kernel of each case under
+    the GUARD_FILLS poisons, held to no zone byte written and outputs independent of the poison, beside
+    the same two negative controls, which must be caught.
+    """
+    from configurable_spectrograms_torch.ops import kernels as K
+
+    t_phase = time.perf_counter()
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out", "sanitize")
+    os.makedirs(log_dir, exist_ok=True)
+    failures: list[str] = []
+    reports: list[str] = []
+    sass = lineinfo_sass()
+    say("sanitize", check="-lineinfo changes no SASS", identical=sass["identical"], sass_lines=sass["lines"],
+        lines_differing=sass["lines_differing"])
+    if not sass["identical"]:
+        failures.append(f"-lineinfo changed {sass['lines_differing']} SASS lines")
+    unsupported = None
+    for control, tool in SANITIZE_CONTROLS:
+        r = run_sanitizer_child(tool, {"control": control}, log_dir)
+        if r["unsupported"]:
+            unsupported = r
+            break
+        n = sum(1 for sev, _, _ in r["records"] if sev == "error")
+        say("sanitize", control=control, tool=tool, errors=n, rc=r["rc"], seconds=f"{r['seconds']:.2f}")
+        if n == 0:
+            failures.append(f"the {control} control under {tool} reported no error (rc {r['rc']}): the gate "
+                            "cannot fail")
+    for tool in tools:
+        r = unsupported or run_sanitizer_child(tool, {"seeds": [first, count]}, log_dir)
+        if r["unsupported"]:
+            unsupported = r
+            msg = next((ln.strip("= \n") for ln in open(r["log"]) if SANITIZE_UNSUPPORTED in ln), "")
+            say("sanitize", tool=tool, status="unsupported", message=repr(msg), probe_rc=r["rc"],
+                probe_log=os.path.relpath(r["log"]))
+            continue
+        if r["rc"] not in (0, SANITIZE_EXIT) or not r["child"]:
+            failures.append(f"the {tool} child crashed (rc {r['rc']}): see {r['log']}")
+        lines = dict.fromkeys(("collapse", "fused_quantize", "stft_power", "render_panels"))
+        lines.update(r["child"].get("kernels", {}))
+        if any(k == "other" for _, k, _ in r["records"]):
+            lines["other"] = None
+        for kernel, rec in lines.items():
+            errs = [sev for sev, k, _ in r["records"] if k == kernel]
+            say("sanitize", tool=tool, kernel=kernel, cases=rec["cases"] if rec else 0,
+                launches=sum(rec["launches"].values()) if rec else 0, errors=errs.count("error"),
+                warnings=errs.count("warning"), seconds=f"{rec['seconds']:.2f}" if rec else "0.00")
+        errors = [x for x in r["records"] if x[0] == "error"]
+        if errors or r["summary_errors"] or r["rc"] == SANITIZE_EXIT:
+            failures.append(f"{tool}: {len(errors)} error record(s), {r['summary_errors']} in its summary, "
+                            f"rc {r['rc']} ({r['log']})")
+            reports += [f"{tool} / {k}:\n{text}" for _, k, text in errors]
+        for sev, k, text in r["records"]:
+            if sev == "warning":
+                say("sanitize", tool=tool, warning=k, record=repr(text.splitlines()[0]))
+
+    # Guards: every kernel of every case, under each poison.
+    cases = sanitize_cases(first, count)
+    per: dict = {}
+    for name, case in cases:
+        for kernel in case_kernels(case):
+            before = sum(K.LAUNCHES.values())
+            t0 = time.perf_counter()
+            faults = guard_check(K, case, kernel, device)
+            rec = per.setdefault(kernel, {"cases": 0, "launches": 0, "errors": 0, "seconds": 0.0})
+            rec["cases"] += 1
+            rec["launches"] += sum(K.LAUNCHES.values()) - before
+            rec["errors"] += len(faults)
+            rec["seconds"] += time.perf_counter() - t0
+            if faults:
+                failures.append(f"guard: {kernel} on {name}: " + "; ".join(faults))
+    for kernel, rec in per.items():
+        say("sanitize", tool="guard", kernel=kernel, cases=rec["cases"], launches=rec["launches"],
+            errors=rec["errors"], warnings=0, seconds=f"{rec['seconds']:.2f}")
+    for control, _ in SANITIZE_CONTROLS:
+        runs = []
+        for fill in GUARD_FILLS[:2]:
+            guard = Guard(device, fill)
+            outs = sanitize_control(K, control, device, guard)
+            sync()
+            runs.append(([o.cpu().numpy().tobytes() for o in outs], guard.breaches()))
+        caught = (runs[0][1] > 0) + (runs[0][0] != runs[1][0])
+        say("sanitize", control=control, tool="guard", errors=caught, zone_bytes_written=runs[0][1],
+            output_follows_poison=runs[0][0] != runs[1][0])
+        if not caught:
+            failures.append(f"the {control} control under the guards was not caught: the gate cannot fail")
+    seconds = time.perf_counter() - t_phase
+    say("sanitize", check="phase", cases=len(cases), tools=",".join(tools),
+        compute_sanitizer="unsupported" if unsupported is not None else "ran", failures=len(failures),
+        seconds=f"{seconds:.2f}")
+    for text in reports[:3]:
+        print(text, flush=True)
+    require(not failures, "[sanitize] " + " | ".join(failures[:10]))
+    return {"seconds": seconds, "guard": per, "compute_sanitizer": unsupported is None}
+
+
+# ---------------------------------------------------------------------------
+# [async]: the asynchronous render path held bit for bit to the synchronous one
+# ---------------------------------------------------------------------------
+
+ASYNC_SMALL = SHAPES[1]  # the distinct 2048x32x48 cubes (data/synthetic.py), ASYNC_CUBES of them
+ASYNC_CUBES = 6
+ASYNC_BIG = SHAPES[0]  # one 8192x64x128 cube: larger than the budget, so uploaded by every bucket that reads it
+ASYNC_SWEEP_SEEDS = (3, 14)  # sweep_panels of these sweep cases join the panels (unpadded shapes, odd values)
+ASYNC_SWEEP_CELLS = 1 << 21
+ASYNC_ROUNDS = 4
+ASYNC_WORKERS = 8
+ASYNC_BUDGET_CUBES = 2.5  # the cube cache's budget, in padded small cubes (CST_DEVICE_CUBE_CACHE_BYTES)
+#: (tile_h, tile_w) of the requests: rows gathered on the device (Tp > 256) / every row copied back.
+ASYNC_TILES = ((48, 64), (96, 2200))
+ASYNC_MODES = (("coalesced", {"CST_RENDER_COALESCE": "1"}), ("inline", {"CST_RENDER_COALESCE": "0"}))
+
+
+def async_figure(cube: np.ndarray, seed: int) -> list:
+    """A cube's panels as the FAST figures mix them: the pitch grid (4 pitch categories) and the
+    instrument grid (all pitch bins), whole file and a time window, log and linear z, explicit and
+    percentile bounds (some pooled over another energy range), log and linear y."""
+    from configurable_spectrograms_torch.render.panel import PanelData
+    from configurable_spectrograms_torch.render.tile import compute_time_window
+
+    rng = np.random.default_rng(seed)
+    T, A, E = cube.shape
+    pitch = np.linspace(0.0, 360.0, A, endpoint=False)
+    masks = [(pitch <= 30) | (pitch >= 330), (pitch >= 150) & (pitch <= 210),
+             ((pitch >= 40) & (pitch <= 140)) | ((pitch >= 210) & (pitch <= 330)), np.ones(A, bool)]
+    energy = np.geomspace(30000.0, 4.0, E)
+    times = 946684800.0 + np.linspace(0.0, 1200.0, T)
+    finite = cube[np.isfinite(cube)]
+    top = float(finite.max()) if finite.size else 1.0
+    panels = []
+    for k, mask in enumerate(masks + [np.ones(A, bool)]):
+        for zoom in (False, True):
+            z_scale = ("log", "linear")[(k + zoom + seed) % 2]
+            lo, hi = (times[T // 3], times[T // 3 + T // 4]) if zoom else (None, None)
+            explicit = (k + 2 * zoom) % 3 == 0
+            z_min, z_max = (top * 1e-3, top * 0.5) if explicit else (None, None)
+            panels.append(PanelData(
+                cube=cube, pitch_mask=mask, energy=energy, times=times,
+                window=compute_time_window(times, x_min=lo, x_max=hi), y_min=float(energy.min()) * 2.0,
+                y_max=float(energy.max()) / 2.0, z_min=z_min, z_max=z_max,
+                y_scale=str(rng.choice(("log", "linear"))), z_scale=z_scale, colormap="inferno",
+                x_is_unix=True, z_label="", low_percentile=float(rng.choice((1.0, 5.0))),
+                high_percentile=float(rng.choice((99.0, 95.0))),
+                bounds_energy_range=(30.0, 3000.0) if k == 4 and not explicit else None))
+    return panels
+
+
+def async_panels(small=ASYNC_SMALL, big=ASYNC_BIG, n_small: int = ASYNC_CUBES,
+                 sweep_cells: int = ASYNC_SWEEP_CELLS) -> tuple[list, list]:
+    """(cubes, panels): *n_small* distinct synthetic cubes at *small* and one at *big* with async_figure's panels
+    each, and the panels of the sweep cases ASYNC_SWEEP_SEEDS."""
+    from configurable_spectrograms_torch.data.synthetic import synth_instrument_arrays
+
+    cubes = [synth_instrument_arrays(np.random.default_rng(100 + i), *small)["data"] for i in range(n_small)]
+    cubes.append(synth_instrument_arrays(np.random.default_rng(99), *big)["data"])
+    panels = [p for i, c in enumerate(cubes) for p in async_figure(c, i)]
+    for seed in ASYNC_SWEEP_SEEDS:
+        panels += sweep_panels(sweep_case(seed, max_cells=sweep_cells))
+    return cubes, panels
+
+
+def async_requests(n_panels: int, rng) -> list[tuple[list[int], tuple[int, int]]]:
+    """The panels shuffled into requests of 1-10 panels, each at one of ASYNC_TILES."""
+    order = rng.permutation(n_panels).tolist()
+    requests = []
+    while order:
+        n = int(rng.integers(1, 11))
+        requests.append((order[:n], ASYNC_TILES[int(rng.integers(len(ASYNC_TILES)))]))
+        order = order[n:]
+    return requests
+
+
+def async_result_key(r: dict) -> tuple:
+    """What a panel's render must reproduce bit for bit: its error, or its bounds, metadata and index rows."""
+    if "error" in r:
+        return ("error", r["error"])
+    scalars = tuple(np.float64(r[k]).tobytes() for k in ("vmin", "vmax", "y0", "y1"))
+    return (scalars, r["n_kept"], r["empty"], r["idx"].shape, r["idx"].tobytes(), r["idx_rows"].tobytes())
+
+
+def run_async_requests(panels: list, requests: list, workers: int) -> dict[tuple[int, int], dict]:
+    """Render every request through the render service from *workers* threads; {(panel, tile): result}."""
+    import queue
+    import threading
+
+    from configurable_spectrograms_torch.render.service import coalesced_render
+
+    todo: queue.Queue = queue.Queue()
+    for req in requests:
+        todo.put(req)
+    results: dict = {}
+    errors: list = []
+
+    def work() -> None:
+        while True:
+            try:
+                idxs, (h, w) = todo.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                for i, r in zip(idxs, coalesced_render([panels[i] for i in idxs], h, w)):
+                    results[(i, (h, w))] = r
+            except BaseException as exc:  # noqa: BLE001 - reported by the caller
+                errors.append(exc)
+
+    threads = [threading.Thread(target=work, name=f"async-worker-{n}") for n in range(workers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results
+
+
+def swap_owners(cubes: list, panels: list, picks: list[int]) -> int:
+    """Replace cubes[i] for i in *picks* by an equal-valued copy in every panel, dropping the old owner.
+
+    Returns how many new copies took an ``id`` one of the dropped owners had.
+    """
+    import gc
+
+    dropped = set()
+    for i in picks:
+        old, new = cubes[i], cubes[i].copy()
+        for p in panels:
+            if p.cube is old:
+                p.cube = new
+        dropped.add(id(old))
+        cubes[i] = new
+        del old, new
+    gc.collect()
+    return sum(id(cubes[i]) in dropped for i in picks)
+
+
+def run_async(rounds: int = ASYNC_ROUNDS, workers: int = ASYNC_WORKERS, small=ASYNC_SMALL,
+              big=ASYNC_BIG, n_small: int = ASYNC_CUBES, sweep_cells: int = ASYNC_SWEEP_CELLS) -> dict:
+    """The ``[async]`` phase: the render service under eviction and concurrency, held to the synchronous render.
+
+    Reference: every panel alone through ``device_render_panels`` with the cube cache and the coalescer
+    off.  Then *rounds* rounds, each rendering every panel again, shuffled into requests from *workers*
+    threads, once through the coalescer and once inline, with ``CST_DEVICE_CUBE_CACHE_BYTES`` at
+    ASYNC_BUDGET_CUBES padded small cubes; between rounds some cubes' owners are replaced by
+    equal-valued copies.  Every result must equal the reference bit for bit; the cache must have evicted
+    by budget (misses above the distinct cubes) and hit; the staging pool must stay within keep + workers
+    buffers; the device memory must hold nothing beyond the resident cubes, and after the caches are
+    cleared, what it held before the phase.
+    """
+    import gc
+
+    import torch
+
+    from configurable_spectrograms_torch.render import device_cache
+    from configurable_spectrograms_torch.render.dispatch import device_render_panels
+    from configurable_spectrograms_torch.utils.torch_setup import get_device
+
+    device = get_device()
+
+    def allocated() -> int | None:
+        """The caching allocator's live bytes on the card (None in a CPU rehearsal, which checks no memory)."""
+        sync()
+        return torch.cuda.memory_allocated(device) if device.type == "cuda" else None
+
+    t_phase = time.perf_counter()
+    cubes, panels = async_panels(small, big, n_small, sweep_cells)
+    make_s = time.perf_counter() - t_phase
+    keys = ("CST_RENDER_COALESCE", "CST_DEVICE_CUBE_CACHE", "CST_DEVICE_CUBE_CACHE_BYTES")
+    saved = {k: os.environ.get(k) for k in keys}
+    device_cache.clear_cube_caches()
+    gc.collect()
+    before = allocated()
+    out = {"panels": len(panels), "runs": [], "swaps": []}
+    try:
+        os.environ.update(CST_RENDER_COALESCE="0", CST_DEVICE_CUBE_CACHE="0")
+        t0 = time.perf_counter()
+        ref = {}
+        for i, p in enumerate(panels):
+            for h, w in ASYNC_TILES:
+                ref[(i, (h, w))] = async_result_key(device_render_panels([p], h, w)[0])
+        ref_s = time.perf_counter() - t0
+        say("async", reference="each panel alone, cache and coalescer off", panels=len(panels),
+            tiles=len(ASYNC_TILES), cubes=len(cubes), make_s=f"{make_s:.2f}", seconds=f"{ref_s:.2f}")
+
+        budget = int(ASYNC_BUDGET_CUBES * padded_cube_bytes(cubes[0]))
+        os.environ.update(CST_DEVICE_CUBE_CACHE="1", CST_DEVICE_CUBE_CACHE_BYTES=str(budget))
+        rng = np.random.default_rng(13)
+        pool = device_cache._STAGING
+        for rnd in range(rounds):
+            for mode, env in ASYNC_MODES:
+                os.environ.update(env)
+                requests = async_requests(len(panels), rng)
+                distinct = len({id(p.cube) for p in panels})
+                t_before = device_cache.upload_telemetry()
+                pool.reset_peak()
+                t0 = time.perf_counter()
+                got = run_async_requests(panels, requests, workers)
+                seconds = time.perf_counter() - t0
+                tel = telemetry_since(t_before)
+                bad = [(i, tile) for (i, tile), r in got.items() if async_result_key(r) != ref[(i, tile)]]
+                missing = len(panels) - len(got)
+                for i, tile in bad[:3]:
+                    p = panels[i]
+                    say("async", FAIL="differs from the reference", round=rnd, mode=mode, panel=i, tile=tile,
+                        shape="x".join(map(str, p.cube.shape)), z=p.z_scale,
+                        bounds="explicit" if p.z_min is not None else "percentile")
+                cache = device_cache.cube_cache(device)
+                resident = cache.total_bytes
+                after = allocated()
+                run = {"round": rnd, "mode": mode, "requests": len(requests), "seconds": seconds,
+                       "differ": len(bad), "missing": missing, "distinct_cubes": distinct,
+                       "staging_peak": pool.peak, **tel}
+                out["runs"].append(run)
+                say("async", round=rnd, mode=mode, panels=len(got), requests=len(requests), workers=workers,
+                    seconds=f"{seconds:.2f}", differ=len(bad), cube_hits=tel["cube_hits"],
+                    cube_misses=tel["cube_misses"], distinct_cubes=distinct, upload_bytes=tel["upload_bytes"],
+                    budget_bytes=budget, staging_buffers_peak=pool.peak, staging_keep=pool.keep,
+                    allocated_before=before, allocated_after=after, resident_bytes=resident)
+                require(not bad and not missing, f"[async] round {rnd} {mode}: {len(bad)} panel(s) differ from "
+                        f"the synchronous reference, {missing} missing")
+                require(tel["cube_misses"] > distinct and tel["cube_hits"] > 0,
+                        f"[async] round {rnd} {mode}: {tel['cube_misses']} misses for {distinct} cubes and "
+                        f"{tel['cube_hits']} hits: the budget did not evict, or nothing was reused")
+                require(pool.peak <= pool.keep + workers, f"[async] {pool.peak} staging buffers at once")
+                if after is not None:
+                    require(after == before + resident, f"[async] round {rnd} {mode}: "
+                            f"{after - before - resident} bytes on the device beyond the resident cubes")
+            resident_ids = {k[0] for k in device_cache.cube_cache(device).keys()}
+            picks = sorted({i for i, c in enumerate(cubes) if id(c) in resident_ids} | {rnd % len(cubes)})
+            recycled = swap_owners(cubes, panels, picks)
+            evicted = len(resident_ids) - len({k[0] for k in device_cache.cube_cache(device).keys()})
+            out["swaps"].append({"round": rnd, "replaced": len(picks), "evicted": evicted, "recycled": recycled})
+            say("async", round=rnd, owners_replaced=len(picks), owner_death_evictions=evicted, ids_recycled=recycled)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    device_cache.clear_cube_caches()
+    gc.collect()
+    after = allocated()
+    out["seconds"] = time.perf_counter() - t_phase
+    say("async", check="caches cleared", allocated_before=before, allocated_after=after,
+        phase_s=f"{out['seconds']:.2f}")
+    if after is not None:
+        require(after == before, f"[async] {after - before} bytes still allocated after the caches were cleared")
+    return out
 
 
 def call_main(main, argv: list[str]) -> int:
@@ -3088,6 +3819,10 @@ def main() -> int:
                     help="only build the kernels and sweep them over seeds START .. START + COUNT - 1")
     ap.add_argument("--scale-orbits", type=int, metavar="N", default=None,
                     help="only build the kernels and run [scale] over an archive of N orbits")
+    ap.add_argument("--sanitize", metavar="START:COUNT", nargs="?", const=f"0:{SANITIZE_SEEDS}", default=None,
+                    help="only build the kernels and run [sanitize] with all four compute-sanitizer tools over "
+                         "the tail cases and sweep seeds START .. START + COUNT - 1")
+    ap.add_argument("--sanitizer-child", metavar="SPEC", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     sweep = (0, SWEEP_SEEDS)
     if args.sweep_seeds is not None:
@@ -3099,6 +3834,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
         return 2
+    if args.sanitizer_child is not None:
+        return sanitizer_child(json.loads(args.sanitizer_child))
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from configurable_spectrograms_torch.ops import _build
     from configurable_spectrograms_torch.utils.torch_setup import get_device
@@ -3138,6 +3875,13 @@ def main() -> int:
         print(json.dumps({"scale": got}))
         return 0
 
+    if args.sanitize is not None:
+        start, _, count = args.sanitize.partition(":")
+        got = run_sanitize(device, int(start), int(count), SANITIZE_DEEP_TOOLS)
+        print(smi)
+        print(json.dumps({"sanitize": {"seeds": args.sanitize, **got}}))
+        return 0
+
     if args.sweep_seeds is not None:
         got = run_sweep(device, *sweep)
         print(smi)
@@ -3149,7 +3893,9 @@ def main() -> int:
     samples = make_audio(AUDIO_SECONDS, AUDIO_RATE)
     records.update(check_stft_kernel(device, samples.astype(np.float32) / 32768.0))
     run_sweep(device, *sweep)
+    run_sanitize(device, 0, SANITIZE_SEEDS)
     if not args.kernels:
+        run_async()
         run_font_and_png()
         run_e2e(records)
         run_audio(records, samples)

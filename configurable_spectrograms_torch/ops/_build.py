@@ -13,7 +13,10 @@ A build writes one ``[BUILD]`` line with its seconds to the run's log.
 
 Flags: ``-fmad=false`` keeps every product rounded the way numpy and XLA
 round it, and there is no ``--use_fast_math`` (``log10f`` stays the
-accurate libdevice function).
+accurate libdevice function).  ``-lineinfo`` adds the source line table
+that ``compute-sanitizer`` reports name lines with; it changes no
+generated instruction (``chip_smoke.py``'s ``[sanitize]`` builds the
+library without it too and compares the SASS).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from configurable_spectrograms_torch.utils.logging import log_message
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: What the last build did: ``seconds`` compiling (0.0 when the cached
 #: library was loaded) and the compiler's ``log`` (ptxas register counts).

@@ -51,6 +51,17 @@ _LAUNCHES_LOCK = threading.Lock()  # the batch driver launches from several thre
 _BIG = 3.0e38  # the fill of the safe-floor minimum, as in ops/spectrogram._analyze_matrix
 
 
+def _empty(shape: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """Every output and scratch tensor a kernel wrapper hands its kernel is made here.
+
+    ``chip_smoke.py``'s ``[sanitize]`` phase swaps it for an allocator that
+    places each tensor between poisoned guard zones (and fills it with a
+    poison pattern), to catch a write past a buffer or a read of memory
+    the kernel never wrote.
+    """
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
 def reset_launches() -> None:
     with _LAUNCHES_LOCK:
         for k in LAUNCHES:
@@ -119,7 +130,7 @@ def stft_bases_t(cos_b: torch.Tensor, sin_b: torch.Tensor) -> torch.Tensor:
     L, K = cos_b.shape
     Kp = -(-K // _STFT_BIN_PAD) * _STFT_BIN_PAD
     Lp = -(-L // _STFT_SAMPLE_PAD) * _STFT_SAMPLE_PAD
-    bt = torch.zeros((4, Kp, Lp), dtype=torch.float32, device=cos_b.device)
+    bt = _empty((4, Kp, Lp), torch.float32, cos_b.device).zero_()
     for i, part in enumerate((*tf32_split(cos_b), *tf32_split(sin_b))):
         bt[i, :K, :L] = part.t()
     return bt
@@ -254,7 +265,7 @@ def collapse_lanes(cubes: torch.Tensor, u_idx: torch.Tensor, masks: torch.Tensor
     from configurable_spectrograms_torch.ops._build import load_library
 
     lib = load_library()
-    out = torch.empty((L, T, E), dtype=torch.float32, device=cubes.device)
+    out = _empty((L, T, E), torch.float32, cubes.device)
     if L == 0:
         return out
     ptrs = _cuda_args(cubes, u_idx, masks, t_valid, out)
@@ -304,11 +315,11 @@ def fused_buffers(L: int, T: int, E: int, device) -> tuple[torch.Tensor, dict[st
     lanes' any-positive flags (L,) int32, which the kernel clears itself.  The outputs: ``idx`` (L, T, E) uint8, ``vmin``
     (L,) float32, ``col_all_nan`` (L, E) bool.
     """
-    work = torch.empty((L * (T * E + E + 2),), dtype=torch.float32, device=device)
+    work = _empty((L * (T * E + E + 2),), torch.float32, device)
     out = {
-        "idx": torch.empty((L, T, E), dtype=torch.uint8, device=device),
-        "vmin": torch.empty((L,), dtype=torch.float32, device=device),
-        "col_all_nan": torch.empty((L, E), dtype=torch.bool, device=device),
+        "idx": _empty((L, T, E), torch.uint8, device),
+        "vmin": _empty((L,), torch.float32, device),
+        "col_all_nan": _empty((L, E), torch.bool, device),
     }
     return work, out
 
@@ -365,7 +376,7 @@ def stft_power(frames: torch.Tensor, cos_b: torch.Tensor, sin_b: torch.Tensor) -
     from configurable_spectrograms_torch.ops._build import load_library
 
     lib = load_library()
-    out = torch.empty((F, K), dtype=torch.float32, device=frames.device)
+    out = _empty((F, K), torch.float32, frames.device)
     if F == 0:
         return out
     _cuda_args(out, cos_b, sin_b)  # one device: the frames'

@@ -9,9 +9,11 @@ NaN-padded ``(Tp, Ap, Ep)`` cube stays on the device, keyed by
 render ships nothing.
 Owner-death eviction (:class:`..utils.resident_cache.ResidentCache`) keeps
 a recycled ``id`` from aliasing a stale entry.  Each device has its own
-cache, bounded (FIFO) by :func:`device_cube_budget`, a quarter of that
-device's memory: 20 GB on an 80 GB card, room for the padded one-pitch
-audio cube and many orbits' instrument cubes.
+cache, bounded (FIFO) by :func:`device_cube_budget`: the JAX package's
+``CST_DEVICE_CUBE_CACHE_BYTES`` where it is set, read at every insert,
+else a quarter of that device's memory: 20 GB on an 80 GB card, room for
+the padded one-pitch audio cube (1.72 GB) and many orbits' instrument
+cubes (the JAX package's default, 1.5 GB, would hold no audio cube).
 ``CST_DEVICE_CUBE_CACHE=0`` turns the cache off (every bucket uploads its
 cubes, through the same staging).
 
@@ -88,7 +90,19 @@ class Resident:
 
 
 def device_cube_budget(device: torch.device) -> int:
-    """Bytes the resident cubes of *device* may hold: a quarter of its memory (host RAM for the CPU)."""
+    """Bytes the resident cubes of *device* may hold.
+
+    ``CST_DEVICE_CUBE_CACHE_BYTES`` where it is set and parses as an
+    integer (the JAX package's rule: a value that does not parse gives the
+    default); the default is a quarter of the device's memory (host RAM
+    for the CPU).
+    """
+    value = os.environ.get("CST_DEVICE_CUBE_CACHE_BYTES")
+    if value is not None:
+        try:
+            return int(value)
+        except ValueError:
+            pass
     if device.type == "cuda":
         total = torch.cuda.get_device_properties(device).total_memory
     else:
@@ -102,11 +116,11 @@ _CACHES_LOCK = threading.Lock()
 
 
 def cube_cache(device: torch.device) -> ResidentCache:
-    """The resident-cube cache of *device*, bounded by :func:`device_cube_budget`."""
+    """The resident-cube cache of *device*, bounded by :func:`device_cube_budget` as it reads at each insert."""
     with _CACHES_LOCK:
         cache = _CUBE_CACHES.get(str(device))
         if cache is None:
-            cache = _CUBE_CACHES[str(device)] = ResidentCache(max_bytes=device_cube_budget(device))
+            cache = _CUBE_CACHES[str(device)] = ResidentCache(max_bytes=lambda: device_cube_budget(device))
         return cache
 
 
@@ -124,22 +138,26 @@ class StagingPool:
     otherwise it allocates.  ``give(buf, event)`` returns a buffer with the
     event of the copy that reads it, and frees the oldest beyond *keep*.
     *alloc* makes a buffer of at least ``nbytes`` uint8 (pinned by default).
+    ``peak`` is the most buffers that were allocated at once: at most
+    *keep* plus the uploads in flight together.
     """
 
     def __init__(self, keep: int = 2, alloc=None):
-        self._keep = keep
+        self.keep = keep
         self._alloc = alloc or (lambda n: torch.empty((n,), dtype=torch.uint8, pin_memory=True))
         self._free: list[tuple[torch.Tensor, object]] = []
         self._allocated = 0
+        self.peak = 0
         self._lock = threading.Lock()
 
     def take(self, nbytes: int) -> torch.Tensor:
         with self._lock:
             fits = [i for i, (buf, _) in enumerate(self._free) if buf.numel() >= nbytes]
             ready = [i for i in fits if self._free[i][1] is None or self._free[i][1].query()]
-            pick = ready[0] if ready else (fits[0] if fits and self._allocated >= self._keep else None)
+            pick = ready[0] if ready else (fits[0] if fits and self._allocated >= self.keep else None)
             if pick is None:
                 self._allocated += 1
+                self.peak = max(self.peak, self._allocated)
             else:
                 buf, event = self._free.pop(pick)
         if pick is None:
@@ -148,10 +166,15 @@ class StagingPool:
             event.synchronize()  # its copy may still be reading it
         return buf
 
+    def reset_peak(self) -> None:
+        """Start ``peak`` again from the buffers allocated now."""
+        with self._lock:
+            self.peak = self._allocated
+
     def give(self, buf: torch.Tensor, event) -> None:
         with self._lock:
             self._free.append((buf, event))
-            while len(self._free) > self._keep:
+            while len(self._free) > self.keep:
                 self._free.pop(0)
                 self._allocated -= 1
 

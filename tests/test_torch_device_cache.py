@@ -41,6 +41,44 @@ def test_budget_is_a_quarter_of_the_device_memory():
     assert device_cache.cube_cache(CPU) is device_cache.cube_cache(torch.device("cpu"))
 
 
+@pytest.mark.parametrize("value", [None, "123456789", "lots", "1.5e9", ""])
+def test_budget_reads_the_jax_packages_variable(value, monkeypatch):
+    """CST_DEVICE_CUBE_CACHE_BYTES parses as in the JAX package; unset or unparseable, each package keeps its default."""
+    import os
+
+    from configurable_spectrograms_tpu.render.device_cache import _device_cube_budget
+
+    if value is None:
+        monkeypatch.delenv("CST_DEVICE_CUBE_CACHE_BYTES", raising=False)
+    else:
+        monkeypatch.setenv("CST_DEVICE_CUBE_CACHE_BYTES", value)
+    quarter = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") // 4
+    port, ref = device_cache.device_cube_budget(CPU), _device_cube_budget()
+    if value == "123456789":
+        assert port == ref == 123456789
+    else:
+        assert (port, ref) == (quarter, 1_500_000_000)
+    assert device_cache.cube_cache(CPU)._byte_budget() == port
+
+
+def test_budget_change_between_renders_is_read_at_the_next_insert(monkeypatch):
+    cubes = [_cube(s) for s in range(3)]
+    one = _padded_bytes(cubes[0])
+    monkeypatch.setenv("CST_DEVICE_CUBE_CACHE_BYTES", str(3 * one))
+    for c in cubes[:2]:
+        dispatch.device_render_panels(_panels(c), 16, 24)
+    assert len(device_cache.cube_cache(CPU)) == 2
+    monkeypatch.setenv("CST_DEVICE_CUBE_CACHE_BYTES", str(one))
+    assert len(device_cache.cube_cache(CPU)) == 2  # nothing is evicted before an insert
+    dispatch.device_render_panels(_panels(cubes[2]), 16, 24)
+    assert [k[0] for k in device_cache.cube_cache(CPU).keys()] == [id(cubes[2])]
+    monkeypatch.setenv("CST_DEVICE_CUBE_CACHE_BYTES", str(one - 1))
+    t0 = device_cache.upload_telemetry()
+    dispatch.device_render_panels(_panels(cubes[0]), 16, 24)  # larger than the budget: used once, not cached
+    assert _delta(t0)["cube_misses"] == 1
+    assert [k[0] for k in device_cache.cube_cache(CPU).keys()] == [id(cubes[2])]
+
+
 def _cube(seed, T=40, A=6, E=10):
     return (np.random.default_rng(seed).random((T, A, E)) * 100).astype(np.float32)
 
@@ -171,6 +209,19 @@ def test_staging_buffer_is_reused_only_after_its_copy_event():
     pool.give(big, None)
     pool.give(d, None)
     assert len(pool._free) == 2  # the oldest beyond `keep` is dropped
+
+
+def test_staging_pool_peak_counts_buffers_allocated_at_once():
+    pool = device_cache.StagingPool(keep=2, alloc=lambda n: torch.empty(n, dtype=torch.uint8))
+    held = [pool.take(100) for _ in range(5)]  # five uploads in flight together
+    assert pool.peak == 5
+    for buf in held:
+        pool.give(buf, None)
+    assert len(pool._free) == pool.keep
+    pool.reset_peak()
+    assert pool.peak == pool.keep  # the buffers kept, not 0
+    pool.give(pool.take(100), None)  # a kept buffer is reused: no allocation
+    assert pool.peak == pool.keep
 
 
 def test_enqueue_then_wait_equals_render_and_holds_its_tensors():
