@@ -85,6 +85,17 @@ Phases, one line each, in order:
                allocated bytes (nothing beyond the resident cubes; after
                the caches are cleared, what it held before).  One line per
                round and mode.
+   suite    -- the JAX package's own test suite against the port, on the
+               card: tests/test_torch_jax_suite.py's staged run (a tree in
+               which ``configurable_spectrograms_tpu.X`` is the port's module
+               and jax cannot be imported) in one child pytest with a time
+               limit, CST_TORCH_DEVICE unset (so cuda).  One line per JAX
+               test file (functions passed and failed of those classed PASS,
+               not applicable, baseline, skipped nodes, seconds), one with
+               the child's launches, one total.  Every PASS function must
+               pass, except those in CARD_EXPECTED there; collapse and
+               fused_quantize must have launched; no staged process may
+               have loaded jax or a file of the JAX package.
    font     -- the golden pitch grid (tests/goldens/fast_pitch_grid_200dpi.png,
                the inputs of tests/test_golden_figures.py) on the host
                backend: the font file must be a real one (the port's bundled
@@ -2255,6 +2266,63 @@ def run_async(rounds: int = ASYNC_ROUNDS, workers: int = ASYNC_WORKERS, small=AS
     return out
 
 
+# ---------------------------------------------------------------------------
+# [suite]: the JAX package's own test suite, run against the port on the card
+# ---------------------------------------------------------------------------
+
+SUITE_HARNESS = "tests/test_torch_jax_suite.py"
+SUITE_TIMEOUT_S = 600  # the child pytest's limit (about 100-200 s expected)
+
+
+def load_suite_harness():
+    """tests/test_torch_jax_suite.py, loaded by path (it imports only the standard library and pytest)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), SUITE_HARNESS)
+    spec = importlib.util.spec_from_file_location("cst_jax_suite_harness", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_suite(device: str | None = None, timeout: float = SUITE_TIMEOUT_S) -> dict:
+    """The ``[suite]`` phase: every JAX test file in one staged child pytest on *device* (None: the default, cuda)."""
+    h = load_suite_harness()
+    files = h.jax_test_files()
+    with tempfile.TemporaryDirectory(prefix="cst_chip_suite_") as tmp:
+        got = h.run_staged(h.Path(tmp), files, device=device, timeout=timeout)
+    verdict = {f"{file}::{name}": "pass" for file, names in h.PASS.items() for name in names}
+    verdict.update({f: "not_applicable" for f in h.NOT_APPLICABLE})
+    verdict.update({f: "baseline" for f in h.BASELINE})
+    failed = []
+    for file in files:
+        mine = h.jax_test_functions([file])
+        passed = [f for f in mine if verdict.get(f) == "pass" and got["functions"].get(f) == "passed"]
+        failing = [f for f in mine if verdict.get(f) == "pass" and got["functions"].get(f) != "passed"]
+        failed += failing
+        skipped = sum(1 for k, v in got["nodes"].items() if k.startswith(file + "::") and v == "skipped")
+        say("suite", file=file, passed=len(passed), failed=len(failing),
+            not_applicable=sum(verdict.get(f) == "not_applicable" for f in mine),
+            baseline=sum(verdict.get(f) == "baseline" for f in mine), skipped_nodes=skipped,
+            seconds=f"{got['file_seconds'].get(file, 0.0):.2f}")
+    launches = (got["report"] or {}).get("launches") or {}
+    say("suite", launches=json.dumps(launches, separators=(",", ":")))
+    unexplained = [f for f in failed if f not in h.CARD_EXPECTED]
+    for f in failed:
+        say("suite", failed=f, outcome=got["functions"].get(f), card_expected=repr(h.CARD_EXPECTED.get(f)))
+    say("suite", functions_pass=sum(v == "pass" for v in verdict.values()), passed=sum(
+        v == "pass" and got["functions"].get(f) == "passed" for f, v in verdict.items()),
+        failed=len(failed), unexplained=len(unexplained), card_expected=len(h.CARD_EXPECTED),
+        nodes=len(got["nodes"]), processes=len(got["processes"]), returncode=got["returncode"],
+        seconds=f"{got['seconds']:.2f}")
+    require(not unexplained, f"[suite] {len(unexplained)} JAX test(s) classed PASS failed on the card: "
+                             f"{unexplained} (the child's output ends:\n{got['tail'][-3000:]})")
+    require(launches.get("collapse", 0) > 0 and launches.get("fused_quantize", 0) > 0,
+            f"[suite] the device renders launched {launches}: not through the kernels")
+    h.assert_isolated(got)
+    return {"seconds": got["seconds"], "launches": launches, "failed": failed}
+
+
 def call_main(main, argv: list[str]) -> int:
     """A CLI's ``main()`` with *argv*, as the shell would call it (argparse exits become codes)."""
     saved = sys.argv
@@ -3896,6 +3964,7 @@ def main() -> int:
     run_sanitize(device, 0, SANITIZE_SEEDS)
     if not args.kernels:
         run_async()
+        run_suite()
         run_font_and_png()
         run_e2e(records)
         run_audio(records, samples)

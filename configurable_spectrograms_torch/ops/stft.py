@@ -69,11 +69,15 @@ def stft_magnitude(
     """Windowed-STFT magnitude spectrogram: (N,) -> (frames, n_fft//2 + 1) float32.
 
     *x* is a 1D tensor (or array) on the device the work runs on; see the
-    module docstring for the three methods.
+    module docstring for the three methods.  A signal shorter than one
+    frame gives ``(0, frame_length // 2 + 1)``, as in the JAX package,
+    without a transform or a launch (an FFT of no frames raises in MKL).
     """
     _check_method(method)
     x = torch.as_tensor(x, dtype=torch.float32)
     frames = frame_signal(x, frame_length, hop_length)
+    if frames.shape[0] == 0:
+        return x.new_zeros((0, frame_length // 2 + 1))
     if method == "fft":
         window = torch.from_numpy(hann_window(frame_length)).to(x.device)
         mag = torch.fft.rfft(frames * window, dim=-1).abs()

@@ -96,6 +96,27 @@ def test_audio_cli_writes_the_jax_packages_pixels(argv, wav_file, tmp_path, host
     assert rate == jrate and np.array_equal(sig, jsig)
 
 
+@pytest.mark.parametrize("backend,argv", [("device", []), ("device", ["--n-mels", "16"]), ("host", []),
+                                          ("device", ["--stft-method", "matmul"])])
+def test_audio_cli_on_a_wav_shorter_than_one_frame(backend, argv, tmp_path, host_backends, monkeypatch):
+    """500 samples under a 1024-sample frame: both packages save the same empty figure, exit code 0."""
+    import single_plot_audio_spectrogram as jcli
+
+    from configurable_spectrograms_torch.cli import audio
+
+    wav = str(tmp_path / "short.wav")
+    with wave.open(wav, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(8000)
+        w.writeframes((3000 * np.sin(np.arange(500) / 5.0)).astype("<i2").tobytes())
+    monkeypatch.setenv("CST_RENDER_BACKEND", backend)
+    out, ref = str(tmp_path / "port.png"), str(tmp_path / "jax.png")
+    assert _run_main(monkeypatch, audio.main, ["--wav-file", wav, "--output", out, *argv]) == 0
+    assert _run_main(monkeypatch, jcli.main, ["--wav-file", wav, "--output", ref, *argv]) == 0
+    _same_pixels(out, ref)
+
+
 @pytest.mark.parametrize("scales", [("linear", "linear", "viridis"), ("log", "log", "turbo")])
 def test_single_cdf_cli_writes_the_jax_packages_pixels(scales, cdf_archive, tmp_path, host_backends, monkeypatch):
     import single_plot_spectrogram as jcli

@@ -102,6 +102,23 @@ def test_stft_magnitude_matches_jax_per_method(method, power):
 
 
 @pytest.mark.parametrize("method", ["fft", "matmul", "pallas"])
+def test_signal_shorter_than_one_frame_gives_no_frames(method, monkeypatch):
+    """(0, L//2 + 1) float32 as in the JAX package (tests/test_compositor.py::test_stft_empty_signal),
+    with no transform and no kernel call."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("no frames: nothing to transform")
+
+    x = _signal(16, 2)
+    want = np.asarray(jstft.stft_magnitude(x, 32, 8, 2.0, method))
+    monkeypatch.setattr(torch.fft, "rfft", refuse)
+    monkeypatch.setattr(K, "stft_power", refuse)
+    got = tstft.stft_magnitude(torch.from_numpy(x), 32, 8, 2.0, method)
+    assert tuple(got.shape) == want.shape == (0, 17)
+    assert got.dtype == torch.float32 and want.dtype == np.float32 and got.device == torch.device("cpu")
+    assert tuple(tstft.mel_spectrogram(torch.from_numpy(x), 8000, 32, 8, 4, 2.0, method).shape) == (0, 4)
+
+
+@pytest.mark.parametrize("method", ["fft", "matmul", "pallas"])
 @pytest.mark.parametrize("power", [1.0, 2.0])
 def test_mel_spectrogram_matches_jax_per_method(method, power):
     x = _signal(6000, 6)
