@@ -95,7 +95,19 @@ Phases, one line each, in order:
                the child's launches, one total.  Every PASS function must
                pass, except those in CARD_EXPECTED there; collapse and
                fused_quantize must have launched; no staged process may
-               have loaded jax or a file of the JAX package.
+               have loaded jax or a file of the JAX package.  Then a second
+               child: the port's tests that carry the JAX tests' own
+               assertions (tests/test_torch_jax_assertions.py and
+               tests/test_torch_suite_counterparts.py) with
+               CST_TORCH_DEVICE=cuda, on a path where jax and the JAX
+               package cannot be imported, less ASSERTION_DESELECTED there
+               (the tests whose ranks run on the CPU whatever the device).
+               One line: passed, failed, skipped (the tests whose reference
+               is matplotlib, which the card's machine lacks), deselected,
+               the launches of each kernel, seconds.  Every failure must be in
+               CARD_EXPECTED_ASSERTIONS there; collapse, fused_quantize and
+               stft_power must each have launched; no process of the child
+               may have loaded jax or a file of the JAX package.
    font     -- the golden pitch grid (tests/goldens/fast_pitch_grid_200dpi.png,
                the inputs of tests/test_golden_figures.py) on the host
                backend: the font file must be a real one (the port's bundled
@@ -2272,6 +2284,7 @@ def run_async(rounds: int = ASYNC_ROUNDS, workers: int = ASYNC_WORKERS, small=AS
 
 SUITE_HARNESS = "tests/test_torch_jax_suite.py"
 SUITE_TIMEOUT_S = 600  # the child pytest's limit (about 100-200 s expected)
+ASSERTIONS_TIMEOUT_S = 420  # the second child's limit (about 90 s on the H100 machine)
 
 
 def load_suite_harness():
@@ -2320,7 +2333,27 @@ def run_suite(device: str | None = None, timeout: float = SUITE_TIMEOUT_S) -> di
     require(launches.get("collapse", 0) > 0 and launches.get("fused_quantize", 0) > 0,
             f"[suite] the device renders launched {launches}: not through the kernels")
     h.assert_isolated(got)
-    return {"seconds": got["seconds"], "launches": launches, "failed": failed}
+    return {"seconds": got["seconds"], "launches": launches, "failed": failed, "assertions": run_assertions(h, device)}
+
+
+def run_assertions(h, device: str | None) -> dict:
+    """``[suite]``'s second child: the port's tests that carry the JAX tests' assertions, on the card."""
+    with tempfile.TemporaryDirectory(prefix="cst_chip_assertions_") as tmp:
+        got = h.run_assertions(h.Path(tmp), device or "cuda", timeout=ASSERTIONS_TIMEOUT_S)
+    failed, unexplained = h.assertion_failures(got)
+    counts = {k: sum(v == k for v in got["nodes"].values()) for k in ("passed", "failed", "skipped")}
+    launches = (got["report"] or {}).get("launches") or {}
+    for f in failed:
+        say("suite", child="assertions", failed=f, card_expected=f.partition("[")[0] in h.CARD_EXPECTED_ASSERTIONS)
+    say("suite", child="assertions", **counts, deselected=len(h.ASSERTION_DESELECTED), unexplained=len(unexplained),
+        launches=json.dumps(launches, separators=(",", ":")), returncode=got["returncode"],
+        seconds=f"{got['seconds']:.2f}")
+    require(not unexplained, f"[suite] {len(unexplained)} test(s) of {h.ASSERTION_FILES} failed on the card: "
+                             f"{unexplained} (the child's output ends:\n{got['tail'][-3000:]})")
+    require(all(launches.get(k, 0) > 0 for k in ("collapse", "fused_quantize", "stft_power")),
+            f"[suite] the assertion child launched {launches}: not every kernel met its JAX test's reference")
+    h.assert_isolated(got)
+    return {"seconds": got["seconds"], "launches": launches, "failed": failed, **counts}
 
 
 def call_main(main, argv: list[str]) -> int:

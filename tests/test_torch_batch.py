@@ -20,7 +20,6 @@ import doctest
 import importlib
 import json
 import os
-import shutil
 import subprocess
 import sys
 import threading

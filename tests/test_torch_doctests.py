@@ -33,6 +33,7 @@ def test_the_port_has_doctests():
 
 @pytest.mark.parametrize("name", MODULES)
 def test_module_doctests_pass(name, monkeypatch):
+    """test_doctests.py::test_doctest_harness_passes: every module's examples run, none fails."""
     monkeypatch.setenv("CST_TORCH_DEVICE", "cpu")
     module = importlib.import_module(name)
     results = doctest.testmod(module, verbose=False, report=True)

@@ -43,6 +43,7 @@ from __future__ import annotations
 import ast
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -193,6 +194,19 @@ import atexit  # noqa: E402
 atexit.register(_snapshot)
 '''
 
+#: A pytest plugin's hook: at session end, the loaded modules' files and ``ops.kernels.LAUNCHES`` as JSON.
+_SESSION_REPORT = '''
+def pytest_sessionfinish(session, exitstatus):
+    kernels = sys.modules.get("{port}.ops.kernels")
+    report = {{
+        "modules": {{name: os.path.realpath(mod.__file__) if getattr(mod, "__file__", None) else None
+                    for name, mod in list(sys.modules.items())}},
+        "launches": dict(kernels.LAUNCHES) if kernels is not None else None,
+    }}
+    with open(os.environ["CST_SUITE_REPORT"], "w") as f:
+        json.dump(report, f)
+'''
+
 _PLUGIN = '''\
 """The staged run's stand-in for tests/conftest.py."""
 import json
@@ -225,17 +239,7 @@ def synth_archive(tmp_path_factory):
     mapping = synth_fast_archive(str(root), orbits, n_time=96, n_angle=16, n_energy=24, cusp_csv_path=str(csv))
     return {{"root": str(root), "orbits": orbits, "mapping": mapping, "cusp_csv": str(csv)}}
 
-
-def pytest_sessionfinish(session, exitstatus):
-    kernels = sys.modules.get("{port}.ops.kernels")
-    report = {{
-        "modules": {{name: os.path.realpath(mod.__file__) if getattr(mod, "__file__", None) else None
-                    for name, mod in list(sys.modules.items())}},
-        "launches": dict(kernels.LAUNCHES) if kernels is not None else None,
-    }}
-    with open(os.environ["CST_SUITE_REPORT"], "w") as f:
-        json.dump(report, f)
-'''
+''' + _SESSION_REPORT
 
 
 def stage(dest: Path, *, shim: bool = True) -> Path:
@@ -321,31 +325,25 @@ def function_outcomes(nodes: dict[str, str], functions: list[str]) -> dict[str, 
     return out
 
 
-def run_staged(dest: Path, files: list[str], *, device: str | None, timeout: float) -> dict:
-    """Stage the tree under *dest* and run the JAX test *files* there in one child pytest.
+def run_child(cmd: list[str], dest: Path, cwd: Path, env: dict, timeout: float) -> dict:
+    """Run the child pytest *cmd* (its junit XML at ``dest/junit.xml``, its report at ``dest/report.json``).
 
-    Returns the node outcomes, the per-function outcomes, the plugin's
-    report (the child's modules and launches), every staged process's
-    records, the child's exit code, its output's tail and its seconds.
+    Returns the node outcomes, the report (the child's modules and
+    launches), the records of every process under ``dest/records``, the
+    child's exit code, its output's tail and its seconds.
     """
-    root = stage(dest)
     xml, report = dest / "junit.xml", dest / "report.json"
-    env = staged_env(root, device)
-    env["CST_SUITE_REPORT"] = str(report)
-    cmd = [sys.executable, "-m", "pytest", *[f"tests/{f}" for f in files], "-q", "-p", "no:xdist",
-           "--noconftest", "-p", "cst_suite_plugin", "-p", "no:cacheprovider", "-p", "no:randomly",
-           "--continue-on-collection-errors", f"--junitxml={xml}", "-c", str(root / "pytest.ini"),
-           "--rootdir", str(root)]
+    env = {**env, "CST_SUITE_REPORT": str(report)}
     t0 = time.perf_counter()
     # A session of its own, so that a time-out stops the grandchildren too.
-    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+    proc = subprocess.Popen([*cmd, f"--junitxml={xml}"], cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
     try:
         out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, _ = proc.communicate()
-        raise RuntimeError(f"the staged run passed its {timeout} s limit:\n{out[-6000:]}") from None
+        raise RuntimeError(f"the child pytest passed its {timeout} s limit:\n{out[-6000:]}") from None
     finally:
         try:
             os.killpg(proc.pid, signal.SIGKILL)  # any process the run left behind
@@ -353,19 +351,30 @@ def run_staged(dest: Path, files: list[str], *, device: str | None, timeout: flo
             pass
     seconds = time.perf_counter() - t0
     nodes, file_seconds = _node_outcomes(xml) if xml.exists() else ({}, {})
-    processes = []
-    for rec in sorted((dest / "records").glob("*.jsonl")):
-        processes.append([json.loads(line) for line in rec.read_text().splitlines() if line])
     return {
         "returncode": proc.returncode,
         "tail": out[-6000:],
         "seconds": seconds,
         "file_seconds": file_seconds,
         "nodes": nodes,
-        "functions": function_outcomes(nodes, jax_test_functions(files)),
         "report": json.loads(report.read_text()) if report.exists() else None,
-        "processes": processes,
+        "processes": [[json.loads(line) for line in rec.read_text().splitlines() if line]
+                      for rec in sorted((dest / "records").glob("*.jsonl"))],
     }
+
+
+def run_staged(dest: Path, files: list[str], *, device: str | None, timeout: float) -> dict:
+    """Stage the tree under *dest* and run the JAX test *files* there in one child pytest.
+
+    Returns :func:`run_child`'s result with the per-function outcomes.
+    """
+    root = stage(dest)
+    cmd = [sys.executable, "-m", "pytest", *[f"tests/{f}" for f in files], "-q", "-p", "no:xdist",
+           "--noconftest", "-p", "cst_suite_plugin", "-p", "no:cacheprovider", "-p", "no:randomly",
+           "--continue-on-collection-errors", "-c", str(root / "pytest.ini"), "--rootdir", str(root)]
+    result = run_child(cmd, dest, root, staged_env(root, device), timeout)
+    result["functions"] = function_outcomes(result["nodes"], jax_test_functions(files))
+    return result
 
 
 def assert_isolated(result: dict) -> None:
@@ -529,20 +538,36 @@ _JAX = "imports jax to build its inputs or its reference"
 _WORKER = "its worker processes import jax (tests/multihost_worker.py, tests/multihost_flagship_worker.py)"
 _TREE = ("reads the JAX package's source files: pre_commit_hooks/run_doctests.py walks configurable_spectrograms_tpu/ "
          "on disk, and the staged package is the one-file shim")
+# Why a test that cannot run against the port has no port test that carries its assertion:
+_TILE = ("imports jax; it pins a Pallas tiling knob (t_tile, CST_PALLAS_T_TILE): the CUDA kernels take no tile size, "
+         "and chip_smoke.py's [sweep] holds each kernel to its plain version across the shapes that set its tiling")
+_SHARDED_XLA = ("imports jax; it pins what XLA compiles under a mesh (a sharded program's per-device cost, the XLA "
+                "program kept under a mesh): the port's production dispatch has no mesh, one rank renders on one card")
+_HANG = ("imports jax; it pins the bounded dispatch (CST_DEVICE_DISPATCH_TIMEOUT) and its fall-back to the host, which "
+         "stay behind with render.link (rule 5): in the port a CUDA error raises and nothing falls back")
+_A = "test_torch_jax_assertions.py::"
 _C = "test_torch_suite_counterparts.py::"
+_DRYRUN = "test_torch_parallel.py::test_dryrun_multichip_two_gloo_ranks_on_the_cpu"
 
 
 def _na(file: str, reason: str, **counterparts: str | None) -> dict:
     return {f"{file}::{name}": (reason, port) for name, port in counterparts.items()}
 
 
-#: JAX test function -> (why it cannot run against the port, the port test that holds its behaviour or None).
+def _same(file: str, reason: str, *names: str) -> dict:
+    """Entries whose port test is the one of the same name in test_torch_jax_assertions.py."""
+    return _na(file, reason, **{name: _A + name for name in names})
+
+
+#: JAX test function -> (why it cannot run against the port, the port test that makes its assertions, or None).
+#: A port test named here names the JAX test in its docstring and does not reach the JAX package
+#: (:func:`counterpart_problems`).
 NOT_APPLICABLE = {
     **_na("test_compositor.py", _PROBE,
           test_fastpng_roundtrip=_C + "test_fastpng_roundtrip_on_every_encoder_path",
           test_fastpng_rle_encoder_roundtrip=_C + "test_fastpng_roundtrip_on_every_encoder_path",
           test_fastpng_concurrent_encodes=_C + "test_fastpng_concurrent_encodes"),
-    **_na("test_compositor.py", _BACKEND, test_recommended_workers_host_vs_device="test_torch_cli.py::test_recommended_workers"),
+    **_same("test_compositor.py", _BACKEND, "test_recommended_workers_host_vs_device"),
     **_na("test_compositor.py", _LINK, test_canvas_pool_depth_follows_worker_demand=_C + "test_canvas_pool_depth_follows_worker_demand"),
     **_na("test_device_result_cache.py", _RESULTS, test_repeat_render_serves_from_cache_bit_identical=None,
           test_cache_key_sensitivity=None, test_cache_disabled_by_env=None, test_owner_death_evicts_entries=None,
@@ -550,82 +575,57 @@ NOT_APPLICABLE = {
     **_na("test_doctests.py", _TREE, test_doctest_harness_passes="test_torch_doctests.py::test_module_doctests_pass"),
     **_na("test_fuzz_parity.py", _JAX,
           test_equal_bounds_paint_whole_panel_lut0=_C + "test_equal_bounds_paint_whole_panel_lut0",
-          test_fuzz_host_vs_device_quantize="test_torch_spectrogram.py::test_quantize_matrix_matches_jax_and_host",
+          test_fuzz_host_vs_device_quantize=_A + "test_fuzz_host_vs_device_quantize",
           test_nan_percentile_bounds_pin_lut0_on_both_backends=_C + "test_nan_percentile_bounds_pin_lut0_on_both_backends"),
-    **_na("test_golden_figures.py", _BACKEND, test_golden_figure="test_torch_goldens.py::test_golden_through_the_port",
-          test_golden_fast_grid_200dpi="test_torch_goldens.py::test_golden_through_the_port",
-          test_golden_audio_mel="test_torch_goldens.py::test_golden_through_the_port"),
-    **_na("test_graft_entry.py", _JAX, test_entry_forward_jits="test_torch_parallel.py::test_entry_forward_matches_the_graft_entry",
-          test_dryrun_multichip_eight="test_torch_parallel.py::test_dryrun_multichip_two_gloo_ranks_on_the_cpu",
-          test_ensure_devices_provisions_virtual_cpus=None),
-    **_na("test_host_backend.py", _BACKEND, test_host_backend_full_figure="test_torch_goldens.py::test_golden_through_the_port"),
+    **_same("test_golden_figures.py", _BACKEND, "test_golden_figure", "test_golden_fast_grid_200dpi",
+            "test_golden_audio_mel"),
+    **_na("test_graft_entry.py", _JAX, test_entry_forward_jits=_A + "test_entry_forward_jits",
+          test_dryrun_multichip_eight=_DRYRUN, test_ensure_devices_provisions_virtual_cpus=_DRYRUN),
+    **_same("test_host_backend.py", _BACKEND, "test_host_backend_full_figure"),
     **_na("test_host_backend.py", _LINK, test_auto_backend_calibration_flip=None, test_reprobe_restores_device_backend=None,
           test_cold_link_warm_start_promotion=None, test_dead_link_stays_host=None, test_reprobe_not_due_is_noop=None,
           test_bandwidth_preselection=None, test_probe_without_bandwidth_counts_as_healthy=None),
-    **_na("test_multihost.py", _WORKER,
-          test_two_process_extrema_reduction="test_torch_parallel.py::test_sharded_extrema_stats_equal_the_jax_package",
-          test_two_process_flagship_batch_matches_single_host="test_torch_parallel.py::test_two_rank_flagship_writes_the_one_process_pngs"),
-    **_na("test_native_blit.py", _PROBE,
-          test_blit_matches_numpy_tail="test_torch_fastpng.py::test_blit_matches_numpy_tail_and_jax",
-          test_blit_into_clipped_view="test_torch_fastpng.py::test_blit_matches_numpy_tail_and_jax",
-          test_blit_pre_gathered="test_torch_fastpng.py::test_blit_matches_numpy_tail_and_jax",
-          test_blit_falls_back_on_unsupported_layout="test_torch_fastpng.py::test_blit_declines_layouts_it_does_not_take",
-          test_blend_tile_exhaustive_triples="test_torch_fastpng.py::test_blend_every_byte_triple_equals_image_paste",
-          test_blend_tile_random_placement_and_clipping="test_torch_fastpng.py::test_canvas_blender_places_and_clips_like_image_paste",
-          test_blend_tile_into_strided_canvas_rows="test_torch_fastpng.py::test_blend_into_strided_rows_and_declines",
-          test_blend_tile_declines_bad_layouts="test_torch_fastpng.py::test_blend_into_strided_rows_and_declines",
-          test_blend_probe_validates_against_pillow="test_torch_fastpng.py::test_blend_probe_and_route",
-          test_canvas_blender_matches_blend_tile="test_torch_fastpng.py::test_canvas_blender_places_and_clips_like_image_paste",
-          test_canvas_blender_declines_bad_canvases="test_torch_fastpng.py::test_blend_into_strided_rows_and_declines"),
-    **_na("test_ops.py", _JAX,
-          test_collapse_cube_matches_nansum="test_torch_kernels.py::test_plain_collapse_matches_host_collapse",
-          test_collapse_cube_empty_mask_and_padding="test_torch_kernels.py::test_plain_collapse_matches_host_collapse",
-          test_masked_nanpercentile="test_torch_spectrogram.py::test_masked_nanpercentile_matches_numpy_and_jax",
-          test_masked_nanpercentile_empty=_C + "test_masked_nanpercentile_empty_and_infinities",
-          test_masked_nanpercentile_with_inf=_C + "test_masked_nanpercentile_empty_and_infinities",
-          test_render_matrix_parity_all_scales="test_torch_spectrogram.py::test_render_matrix_matches_jax_and_the_host_resampler",
-          test_render_matrix_energy_range_and_explicit_bounds="test_torch_spectrogram.py::test_render_matrix_matches_jax_and_the_host_resampler",
-          test_render_matrix_zoom_window_with_margins="test_torch_spectrogram.py::test_render_matrix_matches_jax_and_the_host_resampler",
-          test_render_matrix_all_nan_column_and_empty="test_torch_spectrogram.py::test_render_matrix_matches_jax_and_the_host_resampler",
-          test_render_matrix_matches_matplotlib_imshow="test_torch_spectrogram.py::test_render_matrix_matches_jax_and_the_host_resampler",
-          test_render_matches_matplotlib_log_y="test_torch_spectrogram.py::test_render_matrix_matches_jax_and_the_host_resampler",
-          test_render_matrix_fuzz_vs_oracle="test_torch_spectrogram.py::test_quantize_matrix_matches_jax_and_host"),
-    **_na("test_pallas.py", _JAX,
-          test_collapse_cube_pallas_matches_jnp="test_torch_kernels.py::test_plain_collapse_matches_jax_exactly_up_to_a32",
-          test_collapse_cube_pallas_shape_gate=None, test_fused_quantize_pallas_shape_gate=None,
-          test_fused_quantize_pallas_matches_jnp="test_torch_kernels.py::test_plain_fused_matches_pallas_interpreter",
-          test_fused_quantize_pallas_t_tile_invariant=None, test_pallas_t_tile_env_knob=None,
-          test_render_kernel_pallas_production_switch=None, test_render_kernel_pallas_stays_xla_when_sharded=None),
+    **_same("test_multihost.py", _WORKER, "test_two_process_extrema_reduction",
+            "test_two_process_flagship_batch_matches_single_host"),
+    **_same("test_native_blit.py", _PROBE, "test_blit_matches_numpy_tail", "test_blit_into_clipped_view",
+            "test_blit_pre_gathered", "test_blit_falls_back_on_unsupported_layout", "test_blend_tile_exhaustive_triples",
+            "test_blend_tile_random_placement_and_clipping", "test_blend_tile_into_strided_canvas_rows",
+            "test_blend_tile_declines_bad_layouts", "test_blend_probe_validates_against_pillow",
+            "test_canvas_blender_matches_blend_tile", "test_canvas_blender_declines_bad_canvases"),
+    **_same("test_ops.py", _JAX, "test_collapse_cube_matches_nansum", "test_collapse_cube_empty_mask_and_padding",
+            "test_masked_nanpercentile", "test_render_matrix_parity_all_scales",
+            "test_render_matrix_energy_range_and_explicit_bounds", "test_render_matrix_zoom_window_with_margins",
+            "test_render_matrix_all_nan_column_and_empty", "test_render_matrix_matches_matplotlib_imshow",
+            "test_render_matches_matplotlib_log_y", "test_render_matrix_fuzz_vs_oracle"),
+    **_na("test_ops.py", _JAX, test_masked_nanpercentile_empty=_C + "test_masked_nanpercentile_empty_and_infinities",
+          test_masked_nanpercentile_with_inf=_C + "test_masked_nanpercentile_empty_and_infinities"),
+    **_same("test_pallas.py", _JAX, "test_collapse_cube_pallas_matches_jnp", "test_collapse_cube_pallas_shape_gate",
+            "test_fused_quantize_pallas_matches_jnp", "test_fused_quantize_pallas_shape_gate",
+            "test_render_kernel_pallas_production_switch"),
+    **_na("test_pallas.py", _TILE, test_fused_quantize_pallas_t_tile_invariant=None, test_pallas_t_tile_env_knob=None),
+    **_na("test_pallas.py", _SHARDED_XLA, test_render_kernel_pallas_stays_xla_when_sharded=None),
+    **_same("test_parallel.py", _JAX, "test_make_mesh_shapes", "test_sharded_extrema_matches_single_device",
+            "test_sharded_render_matches_single_device", "test_sharded_render_rejects_bad_batch",
+            "test_data_parallel_mesh_never_enumerates_devices_on_host_backend"),
     **_na("test_parallel.py", _JAX,
-          test_make_mesh_shapes="test_torch_parallel.py::test_mesh_and_batch_errors_match_the_jax_package",
-          test_sharded_extrema_matches_single_device="test_torch_parallel.py::test_sharded_extrema_stats_equal_the_jax_package",
-          test_sharded_render_matches_single_device="test_torch_parallel.py::test_sharded_batch_render_matches_the_jax_package",
-          test_sharded_render_rejects_bad_batch="test_torch_parallel.py::test_mesh_and_batch_errors_match_the_jax_package",
-          test_init_distributed_forwards_arguments="test_torch_parallel.py::test_init_distributed_forwards_arguments",
-          test_data_parallel_mesh_never_enumerates_devices_on_host_backend="test_torch_parallel.py::test_data_parallel_mesh_spans_the_group"),
+          test_init_distributed_forwards_arguments="test_torch_parallel.py::test_init_distributed_forwards_arguments"),
+    **_same("test_production_sharding.py", _JAX, "test_production_render_spans_mesh_and_matches_unsharded",
+            "test_batched_file_stats_sharded_matches_unsharded", "test_extrema_scan_identical_with_and_without_mesh",
+            "test_host_file_stats_matches_device", "test_repeat_render_reuses_resident_cubes",
+            "test_explicit_bounds_program_shards_and_matches", "test_mixed_bucket_group_shards_and_matches"),
     **_na("test_production_sharding.py", _JAX,
-          test_production_render_spans_mesh_and_matches_unsharded="test_torch_parallel.py::test_sharded_batch_render_matches_the_jax_package",
-          test_batched_file_stats_sharded_matches_unsharded="test_torch_parallel.py::test_sharded_extrema_stats_equal_the_jax_package",
-          test_extrema_scan_identical_with_and_without_mesh="test_torch_extrema.py::test_extrema_json_matches_the_jax_package_key_by_key",
-          test_host_file_stats_matches_device="test_torch_extrema.py::test_file_extrema_stats_matches_jax_and_host",
-          test_repeat_render_reuses_resident_cubes="test_torch_device_cache.py::test_second_render_of_a_cube_ships_nothing",
-          test_hung_dispatch_falls_back_to_host=None, test_forced_device_hung_dispatch_raises=None,
-          test_inverted_log_bounds_error_scoped_to_owning_figure=_C + "test_inverted_log_bounds_error_scoped_to_owning_figure",
-          test_hung_extrema_dispatch_falls_back_to_host=None,
-          test_sharded_quantize_partitions_compute_not_just_outputs=None, test_sharded_extrema_partitions_compute=None,
-          test_explicit_bounds_program_shards_and_matches="test_torch_parallel.py::test_sharded_batch_render_matches_the_jax_package",
-          test_mixed_bucket_group_shards_and_matches="test_torch_render_service.py::test_mixed_geometries_concurrently"),
-    **_na("test_quantize_path.py", _JAX,
-          test_host_resample_matches_device_render="test_torch_spectrogram.py::test_render_matrix_matches_jax_and_the_host_resampler",
-          test_host_resample_empty=_C + "test_host_resample_empty",
-          test_pre_gather_path_matches_direct=_C + "test_long_record_renders_the_jax_packages_pixels",
-          test_device_cube_cache_reuse_and_eviction="test_torch_device_cache.py::test_budget_evicts_fifo"),
-    **_na("test_render_service.py", _LINK,
-          test_multi_bucket_readbacks_overlap="test_torch_render_service.py::test_batches_overlap",
-          test_bucket_readback_error_propagates="test_torch_render_service.py::test_drainer_failure_fails_every_future",
-          test_watchdog_trip_uses_landed_siblings=None, test_stale_probe_cannot_repromote_after_dispatch_failure=None,
-          test_coalescer_overlaps_batches="test_torch_render_service.py::test_batches_overlap",
-          test_sibling_batches_fast_trip_after_watchdog=None),
+          test_inverted_log_bounds_error_scoped_to_owning_figure=_C + "test_inverted_log_bounds_error_scoped_to_owning_figure"),
+    **_na("test_production_sharding.py", _HANG, test_hung_dispatch_falls_back_to_host=None,
+          test_forced_device_hung_dispatch_raises=None, test_hung_extrema_dispatch_falls_back_to_host=None),
+    **_na("test_production_sharding.py", _SHARDED_XLA, test_sharded_quantize_partitions_compute_not_just_outputs=None,
+          test_sharded_extrema_partitions_compute=None),
+    **_same("test_quantize_path.py", _JAX, "test_host_resample_matches_device_render", "test_pre_gather_path_matches_direct",
+            "test_device_cube_cache_reuse_and_eviction"),
+    **_na("test_quantize_path.py", _JAX, test_host_resample_empty=_C + "test_host_resample_empty"),
+    **_same("test_render_service.py", _LINK, "test_multi_bucket_readbacks_overlap", "test_bucket_readback_error_propagates",
+            "test_coalescer_overlaps_batches"),
+    **_na("test_render_service.py", _LINK, test_watchdog_trip_uses_landed_siblings=None,
+          test_stale_probe_cannot_repromote_after_dispatch_failure=None, test_sibling_batches_fast_trip_after_watchdog=None),
     **_na("test_slow_dispatch.py", _LINK, **{name: None for name in (
         "test_slow_streak_trips_to_host_with_reason", "test_one_fast_batch_resets_the_streak",
         "test_severe_stall_trips_without_waiting_for_streak", "test_fast_device_batches_never_trip",
@@ -644,28 +644,193 @@ NOT_APPLICABLE = {
         "test_latency_policy_inactive_outside_auto", "test_latency_upload_estimate_dedups_shared_cubes",
         "test_prefer_latency_renders_host_on_slow_link", "test_prefer_latency_ignored_for_fast_link",
         "test_slow_dispatch_end_to_end_fallback")}),
-    **_na("test_stft.py", _JAX,
-          test_frame_signal="test_torch_stft.py::test_framing_is_bit_identical_and_a_view",
-          test_stft_pure_tone_peak="test_torch_stft.py::test_stft_magnitude_matches_jax_per_method",
-          test_stft_matches_numpy="test_torch_stft.py::test_stft_magnitude_matches_jax_per_method",
-          test_mel_scale_roundtrip="test_torch_stft.py::test_mel_filterbank_is_bit_identical",
-          test_mel_filterbank_shapes_and_coverage="test_torch_stft.py::test_mel_filterbank_is_bit_identical",
-          test_mel_spectrogram_shape_and_energy="test_torch_stft.py::test_mel_spectrogram_matches_jax_per_method",
-          test_audio_dataset_renders="test_torch_stft.py::test_golden_audio_mel_through_the_port",
-          test_wav_cli_roundtrip="test_torch_cli.py::test_audio_cli_writes_the_jax_packages_pixels",
-          test_stft_matmul_matches_fft="test_torch_stft.py::test_stft_magnitude_matches_jax_per_method",
-          test_stft_unknown_method_raises="test_torch_stft.py::test_audio_dataset_rejects_a_bad_method_on_both_backends",
-          test_mel_spectrogram_method_passthrough="test_torch_stft.py::test_mel_spectrogram_matches_jax_per_method",
-          test_host_stft_matches_device="test_torch_stft.py::test_host_stft_magnitude_is_bit_equal",
-          test_audio_dataset_host_fallback="test_torch_stft.py::test_audio_dataset_host_backend_is_bit_equal",
-          test_audio_dataset_rejects_bad_method_on_both_backends="test_torch_stft.py::test_audio_dataset_rejects_a_bad_method_on_both_backends",
-          test_audio_dataset_hung_device_falls_back="test_torch_stft.py::test_audio_dataset_on_a_missing_card_raises",
-          test_pallas_stft_matches_matmul="test_torch_stft.py::test_stft_power_plain_matches_the_pallas_kernel",
-          test_pallas_stft_magnitude_power_one="test_torch_stft.py::test_stft_magnitude_matches_jax_per_method",
-          test_dataset_accepts_pallas_method="test_torch_stft.py::test_audio_dataset_device_backend_matches_jax"),
+    **_same("test_stft.py", _JAX, "test_frame_signal", "test_stft_pure_tone_peak", "test_stft_matches_numpy",
+            "test_mel_scale_roundtrip", "test_mel_filterbank_shapes_and_coverage", "test_mel_spectrogram_shape_and_energy",
+            "test_audio_dataset_renders", "test_wav_cli_roundtrip", "test_stft_matmul_matches_fft",
+            "test_stft_unknown_method_raises", "test_mel_spectrogram_method_passthrough", "test_host_stft_matches_device",
+            "test_audio_dataset_host_fallback", "test_audio_dataset_rejects_bad_method_on_both_backends",
+            "test_audio_dataset_hung_device_falls_back", "test_pallas_stft_matches_matmul",
+            "test_pallas_stft_magnitude_power_one", "test_dataset_accepts_pallas_method"),
     **_na("test_utils.py", _XLA, test_compile_cache_dir_is_machine_fingerprinted=None,
           test_compile_cache_skipped_on_cpu_backend=None),
 }
+
+_REASONS = (_LINK, _RESULTS, _XLA, _PROBE, _BACKEND, _JAX, _WORKER, _TREE, _TILE, _SHARDED_XLA, _HANG)
+
+
+# -- the counterparts ------------------------------------------------------------------
+
+#: The packages a counterpart may not reach.
+_JAX_TOPS = ("jax", "jaxlib", JAX)
+
+
+def _import_tops(node: ast.AST) -> tuple[set[str], set[str]]:
+    """(top-level packages imported, names bound) by one ``import`` / ``from ... import`` node."""
+    if isinstance(node, ast.Import):
+        return {a.name.split(".")[0] for a in node.names}, {(a.asname or a.name).split(".")[0] for a in node.names}
+    if isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+        return {node.module.split(".")[0]}, {a.asname or a.name for a in node.names}
+    return set(), set()
+
+
+def _jax_bound_names(tree: ast.Module) -> set[str]:
+    """Module-level names bound to jax or the JAX package: its imports, and ``x = pytest.importorskip("jax...")``."""
+    names = set()
+    for node in tree.body:
+        tops, bound = _import_tops(node)
+        if tops & set(_JAX_TOPS):
+            names |= bound
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Call) and node.value.args \
+                and ast.unparse(node.value.func).endswith("importorskip") \
+                and isinstance(node.value.args[0], ast.Constant) \
+                and str(node.value.args[0].value).split(".")[0] in _JAX_TOPS:
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return names
+
+
+def reaches_jax(file: str, func: str) -> list[str]:
+    """How test *func* of *file* reaches jax or the JAX package, through the module's own helpers and fixtures.
+
+    Each finding is an import of those packages in the function or a
+    helper it calls (or a fixture it takes), or a use of a module-level
+    name bound to them.  Empty: the test's references are independent of
+    the JAX package.
+    """
+    tree = ast.parse((REPO / "tests" / file).read_text())
+    defs = {n.name: n for n in tree.body if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
+    bad_names = _jax_bound_names(tree)
+    found, seen, todo = [], set(), [func]
+    while todo:
+        name = todo.pop()
+        if name in seen or name not in defs:
+            continue
+        seen.add(name)
+        node = defs[name]
+        todo += [a.arg for a in node.args.args]  # fixtures of this module
+        for sub in ast.walk(node):
+            tops, _ = _import_tops(sub)
+            if tops & set(_JAX_TOPS):
+                found.append(f"{name} imports {sorted(tops & set(_JAX_TOPS))}")
+            if isinstance(sub, ast.Name):
+                if sub.id in bad_names:
+                    found.append(f"{name} uses {sub.id}")
+                elif sub.id in defs:
+                    todo.append(sub.id)
+    return sorted(set(found))
+
+
+def counterpart_problems(entries: dict) -> list[str]:
+    """What is wrong with the port test each *entries* item names (``NOT_APPLICABLE``'s shape).
+
+    The test must exist, name the JAX test's id (``file.py::name``) in its
+    docstring, and hold the port to a reference other than the JAX
+    package: it may not reach jax or the JAX package (:func:`reaches_jax`).
+    """
+    problems = []
+    for jax_id, (_, port) in entries.items():
+        if port is None:
+            continue
+        file, _, name = port.partition("::")
+        tree = ast.parse((REPO / "tests" / file).read_text())
+        node = next((n for n in tree.body if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))
+                     and n.name == name), None)
+        if node is None:
+            problems.append(f"{jax_id}: no port test {port}")
+            continue
+        if not re.search(re.escape(jax_id) + r"(?![\w])", ast.get_docstring(node) or ""):
+            problems.append(f"{jax_id}: the docstring of {port} does not name it")
+        problems += [f"{jax_id}: {port} reaches the JAX package ({how})" for how in reaches_jax(file, name)]
+    return problems
+
+
+# -- the port's tests that carry the JAX tests' assertions, run in a child as on the card --
+
+#: The files of those tests; ``chip_smoke.py``'s ``[suite]`` runs them on the card after the staged run.
+ASSERTION_FILES = ("tests/test_torch_jax_assertions.py", "tests/test_torch_suite_counterparts.py")
+
+#: Tests of test_torch_jax_assertions.py whose ranks and references all run on the CPU (Gloo), whatever the device.
+_CPU_RANK_TESTS = (
+    "test_make_mesh_shapes", "test_sharded_extrema_matches_single_device", "test_sharded_render_matches_single_device",
+    "test_sharded_render_rejects_bad_batch", "test_production_render_spans_mesh_and_matches_unsharded",
+    "test_explicit_bounds_program_shards_and_matches", "test_mixed_bucket_group_shards_and_matches",
+    "test_batched_file_stats_sharded_matches_unsharded", "test_extrema_scan_identical_with_and_without_mesh",
+    "test_two_process_extrema_reduction", "test_two_process_flagship_batch_matches_single_host",
+)
+
+#: Tests of :data:`ASSERTION_FILES` that the child leaves out, with the reason.
+ASSERTION_DESELECTED = {
+    "tests/test_torch_suite_counterparts.py::test_long_record_renders_the_jax_packages_pixels":
+        "compares the port with the JAX package, which the child may not load; "
+        "test_torch_jax_assertions.py::test_pre_gather_path_matches_direct holds the JAX test's own assertion",
+    **{f"tests/test_torch_jax_assertions.py::{name}":
+       "its ranks and its references run on the CPU (Gloo), as in tier-1, so the card adds nothing to it but "
+       "its processes' start-up; chip_smoke.py's [parallel] holds the parallel layer on the card"
+       for name in _CPU_RANK_TESTS},
+}
+
+_FREETYPE = ("the card's machine rasterizes and measures the bundled font with another FreeType (2.14.3 under "
+             "PIL 12.2.0; the goldens were made under 2.14.1): besides the glyphs, the figure's margins come from "
+             "measured text (compositor._Layout), so the data tiles move or resize by a pixel and re-sample their "
+             "columns.  chip_smoke.py's [font] bounds the pitch grid's share at 2%")
+
+#: Tests of :data:`ASSERTION_FILES` that fail on the card only, with the reason.
+CARD_EXPECTED_ASSERTIONS: dict[str, str] = {
+    "test_torch_jax_assertions.py::test_golden_figure": _FREETYPE,
+    "test_torch_jax_assertions.py::test_golden_fast_grid_200dpi": _FREETYPE,
+    "test_torch_jax_assertions.py::test_golden_audio_mel": _FREETYPE,
+}
+
+_REPORT_PLUGIN = '''\
+"""The assertion child's report of its modules and kernel launches."""
+import json
+import os
+import sys
+
+''' + _SESSION_REPORT
+
+
+def run_assertions(dest: Path, device: str, timeout: float, select: str | None = None) -> dict:
+    """Run :data:`ASSERTION_FILES` on *device* in one child pytest that cannot load jax or the JAX package.
+
+    The child runs from *dest*, not the checkout, with ``--noconftest``
+    (tests/conftest.py imports jax); its path holds packages named
+    ``jax``, ``jaxlib`` and ``configurable_spectrograms_tpu`` that raise
+    ``ImportError``, the staged run's ``sitecustomize`` recorder (in it and
+    in every process it starts), a plugin that reports its modules and
+    kernel launches, and a link to the port.  *select* is a ``-k``
+    expression.  Returns :func:`run_child`'s result.
+    """
+    site = dest / "site"
+    site.mkdir(parents=True)
+    (dest / "port").mkdir()
+    (dest / "port" / PORT).symlink_to(REPO / PORT, target_is_directory=True)
+    records = dest / "records"
+    records.mkdir()
+    for name in _JAX_TOPS:
+        (site / name).mkdir()
+        (site / name / "__init__.py").write_text(_RAISE.format(name=name))
+    (site / "sitecustomize.py").write_text(_SITECUSTOMIZE.format(
+        records=str(records), jax_dir=str((REPO / JAX).resolve()), stage=str(site.resolve())))
+    (site / "cst_assert_report.py").write_text(_REPORT_PLUGIN.format(port=PORT))
+    (site / "pytest.ini").write_text("[pytest]\n")
+    cmd = [sys.executable, "-m", "pytest", *[str(REPO / f) for f in ASSERTION_FILES], "-q", "-p", "no:xdist",
+           "--noconftest", "-p", "cst_assert_report", "-p", "no:cacheprovider", "-p", "no:randomly",
+           "-c", str(site / "pytest.ini"), "--rootdir", str(REPO)]
+    for node in ASSERTION_DESELECTED:
+        cmd += ["--deselect", node]
+    if select:
+        cmd += ["-k", select]
+    return run_child(cmd, dest, dest, staged_env(site, device), timeout)
+
+
+def assertion_failures(result: dict) -> tuple[list[str], list[str]]:
+    """(every failed or uncollected node, those not explained by :data:`CARD_EXPECTED_ASSERTIONS`)."""
+    failed = sorted(k for k, v in result["nodes"].items() if v in ("failed", "uncollected"))
+    if result["returncode"] not in (0, 1) or not result["nodes"]:
+        failed.append(f"the child pytest exited with {result['returncode']}")
+    expected = {k.partition("[")[0] for k in CARD_EXPECTED_ASSERTIONS}
+    return failed, [f for f in failed if f.partition("[")[0] not in expected]
+
 
 #: JAX test functions that do not pass on the JAX package itself, for a reason inside the test.
 BASELINE = {
@@ -701,9 +866,31 @@ def test_every_jax_test_function_has_exactly_one_verdict():
     }
     assert not set(CARD_EXPECTED) - set(passing)
     for func, (reason, port) in NOT_APPLICABLE.items():
-        assert reason in (_LINK, _RESULTS, _XLA, _PROBE, _BACKEND, _JAX, _WORKER, _TREE), func
+        assert reason in _REASONS, func
         if port is not None:
             assert port in jax_test_functions([port.partition("::")[0]]), f"{func}: no port test {port}"
+
+
+def test_every_counterpart_names_its_jax_test_and_holds_an_independent_reference():
+    """Each port test ``NOT_APPLICABLE`` names carries that JAX test's id in its docstring and reaches
+    neither jax nor the JAX package: the port is held to the JAX test's own reference, not to the JAX package."""
+    assert not counterpart_problems(NOT_APPLICABLE)
+    assert sum(port is not None for _, port in NOT_APPLICABLE.values()) == 85
+
+
+def test_the_counterpart_check_sees_a_missing_id_and_a_jax_reference():
+    """The check above fails an entry whose port test does not name it, and one whose only reference is the JAX package."""
+    stft = "test_stft.py::test_stft_matches_numpy"
+    assert counterpart_problems({stft: (_JAX, _A + "test_stft_matches_numpy")}) == []
+    wrong_id = counterpart_problems({stft: (_JAX, _A + "test_stft_pure_tone_peak")})
+    assert wrong_id == [f"{stft}: the docstring of {_A}test_stft_pure_tone_peak does not name it"]
+    jax_only = counterpart_problems({stft: (_JAX, "test_torch_stft.py::test_stft_magnitude_matches_jax_per_method")})
+    assert len(jax_only) == 2 and "does not name it" in jax_only[0]
+    assert "reaches the JAX package (test_stft_magnitude_matches_jax_per_method uses jstft)" in jax_only[1]
+    helper = counterpart_problems({"test_native_blit.py::test_blit_matches_numpy_tail":
+                                   (_PROBE, "test_torch_fastpng.py::test_blit_matches_numpy_tail_and_jax")})
+    assert any("_three_ways uses jtile" in p for p in helper), helper  # found through a helper
+    assert counterpart_problems({stft: (_JAX, _A + "test_no_such_test")}) == [f"{stft}: no port test {_A}test_no_such_test"]
 
 
 # -- shard a's run, and the proof of isolation -------------------------------------------
@@ -780,3 +967,22 @@ def test_the_isolation_check_sees_a_breach(breach, tmp_path):
     records = [[json.loads(line) for line in p.read_text().splitlines()] for p in (tmp_path / "records").glob("*.jsonl")]
     with pytest.raises(AssertionError):
         assert_isolated({"processes": records, "report": {"modules": {}}, "tail": ""})
+
+
+def test_the_assertion_child_runs_isolated_and_reports_its_launches(tmp_path):
+    """chip_smoke.py's second [suite] child, here on the CPU and on a few tests: they pass, the deselected test
+    stays out, no process loads jax or the JAX package, and the report carries the kernels' launch counts."""
+    for node in ASSERTION_DESELECTED:
+        file, _, name = node.partition("::")
+        assert f"{Path(file).name}::{name}" in jax_test_functions([Path(file).name]), node
+    select = "test_frame_signal or test_collapse_cube_matches_nansum or test_masked_nanpercentile_empty or test_long_record"
+    result = run_assertions(tmp_path, "cpu", timeout=600, select=select)
+    failed, unexplained = assertion_failures(result)
+    assert not failed and not unexplained, result["tail"]
+    assert sorted(result["nodes"]) == [
+        "test_torch_jax_assertions.py::test_collapse_cube_matches_nansum", "test_torch_jax_assertions.py::test_frame_signal",
+        "test_torch_suite_counterparts.py::test_masked_nanpercentile_empty_and_infinities"], result["nodes"]
+    assert set(result["nodes"].values()) == {"passed"}
+    assert result["report"]["launches"] == {"collapse": 0, "fused_quantize": 0, "stft_power": 0}  # the CPU launches none
+    assert_isolated(result)
+    assert any(proc and proc[0]["kind"] == "start" for proc in result["processes"])

@@ -278,7 +278,8 @@ def test_make_mesh_raises_without_enough_ranks():
 
 
 def test_init_distributed_forwards_arguments(monkeypatch):
-    """Only the arguments given reach ``init_process_group`` (torchrun's environment otherwise)."""
+    """test_parallel.py::test_init_distributed_forwards_arguments: only the arguments given reach
+    ``init_process_group`` (torchrun's environment otherwise)."""
     import torch.distributed as dist
 
     from configurable_spectrograms_torch.parallel import mesh
@@ -397,6 +398,13 @@ def test_entry_forward_matches_the_graft_entry():
 
 
 def test_dryrun_multichip_two_gloo_ranks_on_the_cpu(cpu_ranks):
+    """test_graft_entry.py::test_dryrun_multichip_eight and test_graft_entry.py::test_ensure_devices_provisions_virtual_cpus.
+
+    The dry run starts its own ranks, one Gloo rank per device, from a
+    process with no group: the port's counterpart of XLA's virtual CPU
+    devices.  Two ranks here, as everywhere in this file, where the JAX
+    tests ask for eight and four devices.
+    """
     from configurable_spectrograms_torch.entry import dryrun_multichip
 
     records = dryrun_multichip(2, "gloo")

@@ -205,30 +205,30 @@ MEMCHECK = """========= COMPUTE-SANITIZER
 =========     and is 1 bytes after the nearest allocation at 0x7f3a4c000000 of size 12096 bytes
 =========     Saved host backtrace up to driver entry point at kernel launch time
 =========         Host Frame: cst_collapse [0x1b2c] in libcst_kernels_0123456789abcdef.so
-========= 
+=========\x20
 ========= Invalid __global__ read of size 4 bytes
 =========     at void cst_stft_power_kernel<(bool)0>(const float *, long long, int, int, const float *, int, int, int, int, int, float *)+0x2a0 in configurable_spectrograms_torch/csrc/stft_power.cu:150
 =========     by thread (3,0,0) in block (0,0,0)
-========= 
+=========\x20
 ========= ERROR SUMMARY: 2 errors
 """
 
 RACECHECK = """========= COMPUTE-SANITIZER
 ========= Error: Race reported between Write access at void cst_fused_stats_kernel<(int)4>(const float *, const int *, const unsigned char *, const unsigned char *, const int *, const int *, const int *, float *, int *, unsigned int *, int *, int, int, int, int)+0x9e0 in configurable_spectrograms_torch/csrc/fused_quantize.cu:121
 =========     and Read access at void cst_fused_stats_kernel<(int)4>(...)+0xa40 in configurable_spectrograms_torch/csrc/fused_quantize.cu:131 [248 hazards]
-========= 
+=========\x20
 ========= Warning: Race reported between Write access at void cst_collapse_kernel<(int)4>(...)+0x100 in configurable_spectrograms_torch/csrc/collapse_common.cuh:84
 =========     and Write access at void cst_collapse_kernel<(int)4>(...)+0x100 in configurable_spectrograms_torch/csrc/collapse_common.cuh:84 [31 hazards]
-========= 
+=========\x20
 ========= RACECHECK SUMMARY: 2 hazards displayed (1 error, 1 warning)
 """
 
 UNSUPPORTED = """========= COMPUTE-SANITIZER
 ========= Error: Device not supported. Please refer to the "Supported Devices" section of the sanitizer documentation
-========= 
+=========\x20
 ========= Program hit cudaErrorUnknown (error 999) due to "unknown error" on CUDA API call to cudaMalloc.
 =========     Saved host backtrace up to driver entry point at error
-========= 
+=========\x20
 ========= ERROR SUMMARY: 3 errors
 """
 

@@ -6,10 +6,14 @@ Each test here holds the port to the contract of one JAX test that
 ``render.fastpng.native_available``), where no other port test held that
 behaviour.  The JAX test each one stands in for is named in its docstring
 and in ``NOT_APPLICABLE`` there.
+
+The device follows ``CST_TORCH_DEVICE`` (the CPU when it is unset), so
+``chip_smoke.py``'s ``[suite]`` runs these tests on the card too.
 """
 
 from __future__ import annotations
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -24,26 +28,36 @@ torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True)
-def _on_the_cpu(monkeypatch):
-    monkeypatch.setenv("CST_TORCH_DEVICE", "cpu")
+def _port_device(monkeypatch):
+    """The device of ``CST_TORCH_DEVICE``, the CPU when it is unset."""
+    monkeypatch.setenv("CST_TORCH_DEVICE", os.environ.get("CST_TORCH_DEVICE", "cpu"))
     monkeypatch.delenv("CST_RENDER_BACKEND", raising=False)
+
+
+def _device() -> torch.device:
+    from configurable_spectrograms_torch.utils.torch_setup import get_device
+
+    return get_device()
 
 
 def _quantize(matrix, energy, e_valid, t_start, t_count, bounds, spec) -> dict:
     T = matrix.shape[0]
+    dev = _device()
     out = S.quantize_matrix(
-        torch.from_numpy(matrix)[None], torch.from_numpy(energy)[None], torch.from_numpy(e_valid)[None],
-        torch.tensor([T]), torch.tensor([t_start]), torch.tensor([t_count]),
-        torch.tensor([bounds], dtype=torch.float32), spec,
+        torch.from_numpy(matrix)[None].to(dev), torch.from_numpy(energy)[None].to(dev),
+        torch.from_numpy(e_valid)[None].to(dev), torch.tensor([T], device=dev), torch.tensor([t_start], device=dev),
+        torch.tensor([t_count], device=dev), torch.tensor([bounds], dtype=torch.float32, device=dev), spec,
     )
-    return {k: v[0].numpy() for k, v in out.items()}
+    return {k: v[0].cpu().numpy() for k, v in out.items()}
 
 
 @pytest.mark.parametrize("z_scale", ["linear", "log"])
 def test_equal_bounds_paint_whole_panel_lut0(z_scale):
-    """test_fuzz_parity.py::test_equal_bounds_paint_whole_panel_lut0 on the port's device analysis."""
-    import matplotlib.colors as mcolors
+    """test_fuzz_parity.py::test_equal_bounds_paint_whole_panel_lut0 on the port's device analysis.
 
+    The log case's reference is matplotlib's LogNorm: where matplotlib is
+    not installed (the card's machine), that case skips.
+    """
     rng = np.random.default_rng(7)
     T, E = 40, 12
     matrix = (rng.random((T, E)) * 50 + 0.5).astype(np.float32)
@@ -57,6 +71,7 @@ def test_equal_bounds_paint_whole_panel_lut0(z_scale):
     if z_scale == "linear":
         np.testing.assert_array_equal(dev["idx"], host["idx"])
         return
+    mcolors = pytest.importorskip("matplotlib.colors")
     expected = mcolors.LogNorm(vmin=v, vmax=v)(np.where(~np.isfinite(matrix) | (matrix <= 0), v, matrix))
     assert float(np.asarray(expected).max()) == 0.0
     assert np.all(dev["idx"] == 0) and np.all(host["idx"] == 0)
@@ -81,10 +96,12 @@ def test_nan_percentile_bounds_pin_lut0_on_both_backends(z_scale):
 
 
 def test_masked_nanpercentile_empty_and_infinities():
-    """test_ops.py::test_masked_nanpercentile_empty and ::test_masked_nanpercentile_with_inf."""
-    empty = S.masked_nanpercentile(torch.ones((1, 4, 4)), torch.zeros((1, 4, 4), dtype=torch.bool), 50.0)
+    """test_ops.py::test_masked_nanpercentile_empty and test_ops.py::test_masked_nanpercentile_with_inf."""
+    dev = _device()
+    empty = S.masked_nanpercentile(torch.ones((1, 4, 4), device=dev), torch.zeros((1, 4, 4), dtype=torch.bool,
+                                                                                      device=dev), 50.0)
     assert torch.isnan(empty).all()
-    vals = torch.tensor([[1.0, 2.0, np.inf, -np.inf, np.nan]])
+    vals = torch.tensor([[1.0, 2.0, np.inf, -np.inf, np.nan]], device=dev)
     valid = torch.ones_like(vals, dtype=torch.bool)
     assert float(S.masked_nanpercentile(vals, valid, 100.0)[0]) == np.inf
     assert float(S.masked_nanpercentile(vals, valid, 0.0)[0]) == -np.inf
@@ -220,7 +237,7 @@ def test_fastpng_concurrent_encodes(tmp_path):
 
 @pytest.mark.parametrize("encoder", ["auto", "rle", "libdeflate"])
 def test_fastpng_roundtrip_on_every_encoder_path(encoder, tmp_path, monkeypatch):
-    """test_compositor.py::test_fastpng_roundtrip and ::test_fastpng_rle_encoder_roundtrip: every canvas
+    """test_compositor.py::test_fastpng_roundtrip and test_compositor.py::test_fastpng_rle_encoder_roundtrip: every canvas
     shape decodes to its pixels on each deflate path; a malformed array raises (the port has no fallback)."""
     from configurable_spectrograms_torch.render.fastpng import write_png_rgb
 
