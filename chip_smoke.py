@@ -5,6 +5,7 @@
                                      # its records carry "launches": null
     python3 chip_smoke.py --sweep-seeds 0:2000  # build + a deep sweep of seeds 0..1999 only
     python3 chip_smoke.py --scale-orbits 325    # build + [scale] over an archive of 325 orbits only
+    python3 chip_smoke.py --scale-orbits 12 --scale-shape 8192x64x128  # the same at the instrument's cube
     python3 chip_smoke.py --sanitize 0:64       # build + [sanitize] with all four tools over 64 sweep seeds only
 
 Phases, one line each, in order:
@@ -266,7 +267,15 @@ Phases, one line each, in order:
                written, seconds, peak GPU memory (nvidia-smi sampled about
                once a second); redone figures (landed before the kill, not
                yet recorded), figures/s of runs 1 + 2, build seconds, the
-               error keys.
+               error keys.  From each run's report (``FLAGSHIP_RUNNER``;
+               run 1's last one before the kill): decodes (calls reaching
+               the CDF decode, one per dataset-cache miss) and decodes per
+               archive file, uploaded bytes and uploads per cube (over the
+               archive's cube bytes), cube-cache hits, misses and evictions
+               (by budget, by owner death), dispatches, the extrema
+               pre-pass's seconds, the process's own peak RSS and the
+               card's allocator peak; the host's MemTotal on the archive
+               line.
 
     python3 chip_smoke.py --backend-switches N
 
@@ -281,11 +290,18 @@ each setting.  It prints no ok line.
     python3 chip_smoke.py --scale-orbits N
 
 builds the kernels and runs only [scale] over N orbits (N >= 10); it
-prints the nvidia-smi line and a JSON summary, and no ok line.
+prints the nvidia-smi line and a JSON summary, and no ok line.  With
+``--scale-shape TxAxE`` the cubes are T x A x E (default 2048x32x48;
+8192x64x128 is the instrument's); the free disk asked for
+(``scale_disk_need``) and each run's time limit (``scale_limit_s``) follow
+the shape.  Too little disk fails the phase before the archive is made; a
+run past its limit fails it.
 
-Any failure raises (non-zero exit).  The last three lines are the card's
-nvidia-smi line, a JSON line with one record per kernel, and the result
-``{"ok": true, "device": {...}}``.  Needs no network; the kernels are built
+Any failure raises (non-zero exit).  After the phases, a [phases] line
+gives each phase's seconds (less those of the phases it ran) and the
+total.  The last three lines are the card's nvidia-smi line, a JSON line
+with one record per kernel, and the result ``{"ok": true, "device":
+{...}}``.  Needs no network; the kernels are built
 from the checkout into ``build/cst_torch/`` (``ops._build.cache_dir()``).
 """
 
@@ -337,6 +353,24 @@ def require(ok: bool, message: str) -> None:
 
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+#: Each phase's seconds (``timed``), less those of the phases it ran; the [phases] line prints them.
+PHASE_SECONDS: dict[str, float] = {}
+_PHASE_STACK: list[float] = []  # per running phase: the seconds of the phases it has run
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds (less those of the phases inside it) added to ``PHASE_SECONDS[name]``."""
+    _PHASE_STACK.append(0.0)
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        seconds = time.perf_counter() - t0
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + seconds - _PHASE_STACK.pop()
+        if _PHASE_STACK:
+            _PHASE_STACK[-1] += seconds
 
 
 def nvidia_smi_line() -> str:
@@ -976,11 +1010,11 @@ def run_e2e(records: dict, small=SHAPES[1], big=SHAPES[0]) -> None:
             say("e2e", backend=backend, orbits=len(mapping), panels=n_panels,
                 panels_per_s=f"{n_panels / secs_b:.2f}", note="process_orbit incl. decode, composite, PNG")
         require(have_pil, "PIL does not import: the batch phase writes PNGs")
-        run_generic(records, mapping, tmp)
-        runs = run_batch(records, mapping, root, os.path.join(tmp, "cusp.tsv"), tmp)
+        timed("generic", run_generic, records, mapping, tmp)
+        runs = timed("batch", run_batch, records, mapping, root, os.path.join(tmp, "cusp.tsv"), tmp)
         os.environ.pop("CST_RENDER_BACKEND", None)
-        run_gui(records, mapping, root, os.path.join(tmp, "cusp.tsv"), tmp, runs["device"])
-        run_parallel(records, mapping, root, os.path.join(tmp, "cusp.tsv"), tmp, runs["device"])
+        timed("gui", run_gui, records, mapping, root, os.path.join(tmp, "cusp.tsv"), tmp, runs["device"])
+        timed("parallel", run_parallel, records, mapping, root, os.path.join(tmp, "cusp.tsv"), tmp, runs["device"])
 
 
 def add_launches(records: dict, counts: dict) -> None:
@@ -3458,7 +3492,7 @@ def run_audio(records: dict, samples: np.ndarray) -> None:
 
 
 SCALE_ORBITS = 12  # the default run's archive; --scale-orbits N for tools/scale_run.py's 325
-SCALE_SHAPE = SHAPES[1]  # 2048x32x48, tools/scale_run.py:67-68
+SCALE_SHAPE = SHAPES[1]  # 2048x32x48, tools/scale_run.py:67-68; --scale-shape TxAxE (8192x64x128, the real cube)
 SCALE_FIRST_ORBIT = 3000
 SCALE_SEED = 11  # the garbage header's bytes
 #: The faults of tools/scale_run.py's archive: (orbit offset in the sorted archive, instrument, kind).
@@ -3466,21 +3500,48 @@ SCALE_FAULTS = ((1, "ees", "truncate"), (5, "ies", "garbage"), (9, "eeb", "empty
 SCALE_COMBOS = ("linear_linear", "linear_log", "log_linear", "log_log")
 FIGURES_PER_ORBIT_AND_COMBO = 10  # 4 pitch grids x given/raw + the instrument grid x given/raw
 SCALE_NOOP_LIMIT_S = 30.0  # run 3, the resume of a finished archive
-SCALE_BYTES_PER_ORBIT = 35 << 20  # free disk the phase asks for an orbit: 4 CDFs (~10 MB) and 40 PNGs (~20 MB)
+SCALE_TWIN_ORBITS = 2  # the host backend's twin run: the archive's first orbits (the second is faulted)
+SCALE_PNG_BYTES = 1 << 20  # free disk the phase asks for a PNG (a 200-DPI figure of the flagship: ~0.5 MB)
+#: Each run's time limit: SCALE_LIMIT_BASE_S, plus for every orbit it has to render SCALE_LIMIT_S_PER_ORBIT
+#: (figures, PNGs) and SCALE_LIMIT_S_PER_GB per GB of the orbit's four cubes (decodes, collapses, uploads).
+SCALE_LIMIT_BASE_S = 300
+SCALE_LIMIT_S_PER_ORBIT = 12
+SCALE_LIMIT_S_PER_GB = 30
 SCALE_CONTEXT_WAIT_S = 120  # the longest wait for the killed run's CUDA context to leave nvidia-smi
 PORT = "configurable_spectrograms_torch"
 FLAGSHIP = f"{PORT}.cli.batch_multi_plot_FAST_spectrograms"
-#: ``python -c`` body: the flagship CLI run as ``python -m`` runs it (``runpy``).  The CLI leaves through
-#: ``cli.common.clean_exit`` (``os._exit``), wrapped here to first write what the process launched,
-#: dispatched and allocated on the card to the JSON file named by the first argument.  A second
-#: argument, where given, replaces the driver's worker threads.
+#: ``python -c`` body: the flagship CLI run as ``python -m`` runs it (``runpy``).  It writes what the
+#: process launched, dispatched, decoded and allocated to the JSON file named by the first argument:
+#: every second while it runs (so a killed run leaves its counts of at most a second before), and last
+#: from ``cli.common.clean_exit`` (``os._exit``), wrapped for that (``"final": true``).  The counts:
+#: ``ops.kernels.LAUNCHES``; the upload telemetry; ``decodes``, the calls that reach
+#: ``data.cdf_utils._decode_fast_cdf`` (a dataset-cache miss each), beside the cache's own counts;
+#: ``extrema_s``, the seconds inside the extrema pre-pass (``compute_global_extrema``, every combo);
+#: the device cube cache's evictions by its byte budget and by the death of a cube's owner; the
+#: process's own peak RSS (VmHWM; also as it stood when the pre-pass ended), the pinned host
+#: allocator's peak bytes and the card's allocator peak.  A second argument, where given, replaces the
+#: batch driver's worker threads.
 FLAGSHIP_RUNNER = f"""
-import json, os, runpy, sys
+import json, os, resource, runpy, sys, threading, time
 from {PORT}.cli import common
-from {PORT}.utils import config
+from {PORT}.data import cdf_utils
+from {PORT}.fast import batch_directory
+from {PORT}.utils import config, resident_cache
 
 report, workers, sys.argv = sys.argv[1], sys.argv[2:], sys.argv[:1]
 real_exit, real_run = common.clean_exit, config.FastBatchConfig.run
+real_decode, real_extrema = cdf_utils._decode_fast_cdf, batch_directory.compute_global_extrema
+Cache = resident_cache.ResidentCache
+real_evict, real_drain = Cache._evict_one, Cache._drain_dead
+counts = {{"decodes": 0, "extrema_s": 0.0, "peak_rss_after_extrema_mib": None, "budget_evictions": 0,
+          "owner_evictions": 0}}
+lock, final = threading.Lock(), []
+inherited_maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+
+
+def add(key, n):
+    with lock:
+        counts[key] += n
 
 
 def run(self):
@@ -3489,24 +3550,126 @@ def run(self):
     return real_run(self)
 
 
-def clean_exit(code=0):
+def decode(*args, **kwargs):
+    add("decodes", 1)
+    return real_decode(*args, **kwargs)
+
+
+def extrema(*args, **kwargs):
+    t0 = time.perf_counter()
+    try:
+        return real_extrema(*args, **kwargs)
+    finally:
+        add("extrema_s", time.perf_counter() - t0)
+        with lock:
+            counts["peak_rss_after_extrema_mib"] = peak_rss_mib()
+
+
+def evict_one(self):  # the byte-bounded caches are the device cube caches
+    if self._max_bytes is not None:
+        add("budget_evictions", 1)
+    real_evict(self)
+
+
+def drain_dead(self):
+    before = len(self._cache)
+    real_drain(self)
+    if self._max_bytes is not None and len(self._cache) < before:
+        add("owner_evictions", before - len(self._cache))
+
+
+def pinned_stats():  # the pinned host allocator's (torch.cuda.host_memory_stats, where this torch has it)
+    stats = getattr(sys.modules["torch"].cuda, "host_memory_stats", None)
+    return stats() if stats else {{}}
+
+
+def peak_rss_mib():  # this process's own peak: ru_maxrss keeps the spawning parent's peak across exec
+    with open("/proc/self/status") as f:
+        hwm = [int(line.split()[1]) for line in f if line.startswith("VmHWM:")]
+    if hwm:
+        return hwm[0] / 1024
+    maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return maxrss / 1024 if maxrss > inherited_maxrss else None  # None: not above what the parent left
+
+
+def write(last):
     kernels = sys.modules.get("{PORT}.ops.kernels")
     cache = sys.modules.get("{PORT}.render.device_cache")
     torch = sys.modules.get("torch")
     cuda = torch is not None and torch.cuda.is_initialized()
-    body = {{"launches": dict(kernels.LAUNCHES) if kernels else {{}},
-             "upload": cache.upload_telemetry() if cache else {{}},
-             "max_memory_allocated": sum(map(torch.cuda.max_memory_allocated, range(torch.cuda.device_count())))
-             if cuda else 0}}
-    with open(report + ".tmp", "w") as f:
-        json.dump(body, f)
-    os.replace(report + ".tmp", report)
+    with lock:
+        if final:
+            return
+        if last:
+            final.append(True)
+        body = {{"launches": dict(kernels.LAUNCHES) if kernels else {{}},
+                 "upload": cache.upload_telemetry() if cache else {{}},
+                 "max_memory_allocated": sum(map(torch.cuda.max_memory_allocated, range(torch.cuda.device_count())))
+                 if cuda else 0,
+                 "pinned_peak_bytes": pinned_stats().get("allocated_bytes.peak") if cuda else None,
+                 "dataset_cache": cdf_utils.dataset_cache_stats(), **counts, "host_peak_rss_mib": peak_rss_mib(),
+                 "final": last}}
+        with open(report + ".tmp", "w") as f:
+            json.dump(body, f)
+        os.replace(report + ".tmp", report)
+
+
+def every_second():
+    while not final:
+        write(False)
+        time.sleep(1.0)
+
+
+def clean_exit(code=0):
+    write(True)
     real_exit(code)
 
 
 common.clean_exit, config.FastBatchConfig.run = clean_exit, run
+cdf_utils._decode_fast_cdf, batch_directory.compute_global_extrema = decode, extrema
+Cache._evict_one, Cache._drain_dead = evict_one, drain_dead
+threading.Thread(target=every_second, daemon=True).start()
 runpy.run_module("{FLAGSHIP}", run_name="__main__", alter_sys=True)
 """
+
+
+def parse_shape(text: str) -> tuple[int, int, int]:
+    """``TxAxE`` (``--scale-shape``) as a (T, A, E) tuple of positive ints."""
+    parts = text.lower().split("x")
+    if len(parts) != 3 or not all(p.isdigit() and int(p) > 0 for p in parts):
+        raise argparse.ArgumentTypeError(f"{text!r} is not TxAxE (three positive integers)")
+    return tuple(map(int, parts))
+
+
+def cube_bytes(shape) -> int:
+    """The float32 bytes of one (T, A, E) cube: what a decode yields and an upload ships."""
+    T, A, E = shape
+    return 4 * T * A * E
+
+
+def scale_disk_need(n_orbits: int, shape) -> int:
+    """Free disk [scale] asks for: each orbit's 4 CDFs at their cube's bytes, and the PNGs of every run.
+
+    A CDF of ``data/synthetic.py`` holds three (T, A, E) float32 variables
+    gzipped, about 0.2 of one cube's bytes; one cube's bytes bound it.
+    """
+    figures = FIGURES_PER_ORBIT_AND_COMBO * len(SCALE_COMBOS)
+    return n_orbits * 4 * cube_bytes(shape) + (n_orbits + SCALE_TWIN_ORBITS) * figures * SCALE_PNG_BYTES
+
+
+def scale_limit_s(n_orbits: float, shape) -> float:
+    """The time limit of a flagship run that renders *n_orbits* orbits of *shape* (the archive's bytes set it)."""
+    orbit_gb = 4 * cube_bytes(shape) / 1e9
+    return SCALE_LIMIT_BASE_S + n_orbits * (SCALE_LIMIT_S_PER_ORBIT + SCALE_LIMIT_S_PER_GB * orbit_gb)
+
+
+def host_mem_total_kib() -> int:
+    """MemTotal of this host (/proc/meminfo), in KiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1])
+    raise RuntimeError("/proc/meminfo has no MemTotal")
 
 
 def inject_faults(mapping: dict, faults, seed: int) -> list[dict]:
@@ -3548,8 +3711,8 @@ def _synth_orbits(root: str, orbits: list, shape: tuple, cusp: str) -> dict:
     return synth_fast_archive(root, orbits, n_time=shape[0], n_angle=shape[1], n_energy=shape[2], cusp_csv_path=cusp)
 
 
-def synth_scale_archive(tmp: str, n_orbits: int) -> tuple[str, dict, str]:
-    """The [scale] archive under *tmp*/scale_data, synthesised by one spawned process per core; its root, files and cusp table."""
+def synth_scale_archive(tmp: str, n_orbits: int, shape=SCALE_SHAPE) -> tuple[str, dict, str]:
+    """The [scale] archive of *shape* cubes under *tmp*/scale_data, one spawned process per core; its root, files, cusp table."""
     import concurrent.futures
     import multiprocessing
 
@@ -3560,7 +3723,7 @@ def synth_scale_archive(tmp: str, n_orbits: int) -> tuple[str, dict, str]:
     parts = [os.path.join(tmp, f"scale_cusp_{k}.tsv") for k in range(workers)]
     mapping = {}
     with concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        for part in pool.map(_synth_orbits, [root] * workers, chunks, [SCALE_SHAPE] * workers, parts):
+        for part in pool.map(_synth_orbits, [root] * workers, chunks, [shape] * workers, parts):
             mapping.update(part)
     rows = []
     for k, part in enumerate(parts):  # one cusp table, in orbit order
@@ -3728,12 +3891,56 @@ def wait_for_context_gone(run: dict) -> float:
         time.sleep(0.5)
 
 
-def run_scale(records: dict, n_orbits: int, tmp: str, device: str = "cuda") -> dict:
+def read_report(path: str) -> dict:
+    """A flagship run's report (``FLAGSHIP_RUNNER``)."""
+    with open(path) as f:
+        return json.load(f)
+
+
+def mib(value) -> str:
+    return "not_measured" if value is None else f"{value:.1f}"
+
+
+def run_fields(report: dict, files: int, archive_cube_bytes: int) -> dict:
+    """The decode, upload and memory fields of a [scale] run's line, from its report.
+
+    ``decodes_per_file`` is over the archive's files; ``uploads_per_cube``
+    is the bytes uploaded over the archive's cube bytes (1.0: every cube
+    shipped once).
+    """
+    up = report["upload"]
+    return {"decodes": report["decodes"], "decodes_per_file": f"{report['decodes'] / files:.3f}",
+            "dataset_misses": report["dataset_cache"]["misses"], "dataset_hits": report["dataset_cache"]["hits"],
+            "upload_bytes": up.get("upload_bytes", 0),
+            "uploads_per_cube": f"{up.get('upload_bytes', 0) / archive_cube_bytes:.3f}",
+            "cube_hits": up.get("cube_hits", 0), "cube_misses": up.get("cube_misses", 0),
+            "dispatches": up.get("dispatches", 0), "budget_evictions": report["budget_evictions"],
+            "owner_evictions": report["owner_evictions"], "extrema_s": f"{report['extrema_s']:.2f}",
+            "host_peak_rss_mib": mib(report["host_peak_rss_mib"]),
+            "peak_rss_after_extrema_mib": mib(report["peak_rss_after_extrema_mib"]),
+            "pinned_peak_mib": mib(report["pinned_peak_bytes"] and report["pinned_peak_bytes"] / 2**20),
+            "max_memory_allocated_mib": f"{report['max_memory_allocated'] / 2**20:.1f}"}
+
+
+def keep_scale_outputs(tmp: str, out_dir: str, tail_bytes: int = 1 << 18) -> None:
+    """Copy the end of each [scale] run's output and log under *tmp* to *out_dir* (they go with *tmp*)."""
+    os.makedirs(out_dir, exist_ok=True)
+    for path in glob.glob(os.path.join(tmp, "scale_*.out")) + glob.glob(os.path.join(tmp, "*", "*_log_*.log")):
+        with open(path, "rb") as f:
+            f.seek(max(0, os.path.getsize(path) - tail_bytes))
+            tail = f.read()
+        name = os.path.relpath(path, tmp).replace(os.sep, "__")
+        with open(os.path.join(out_dir, name), "wb") as f:
+            f.write(tail)
+
+
+def run_scale(records: dict, n_orbits: int, tmp: str, device: str = "cuda", shape=SCALE_SHAPE) -> dict:
     """[scale]: the flagship CLI of an installed copy of the port over an archive with corrupt CDFs, killed and resumed.
 
-    The port's counterpart of tools/scale_run.py on the card (module docstring).
-    *device* is the child's ``CST_TORCH_DEVICE``: ``cpu`` rehearses the phase
-    where no card is (its CPU tensors launch no kernel, and nvcc builds nothing).
+    The port's counterpart of tools/scale_run.py on the card (module docstring),
+    over *n_orbits* orbits of four *shape* cubes each.  *device* is the child's
+    ``CST_TORCH_DEVICE``: ``cpu`` rehearses the phase where no card is (its CPU
+    tensors launch no kernel, and nvcc builds nothing).
     """
     import filecmp
     import shutil
@@ -3741,16 +3948,22 @@ def run_scale(records: dict, n_orbits: int, tmp: str, device: str = "cuda") -> d
     t_phase = time.perf_counter()
     on_card = device != "cpu"
     free = shutil.disk_usage(tmp).free
-    need = n_orbits * SCALE_BYTES_PER_ORBIT
+    need = scale_disk_need(n_orbits, shape)
     require(free > need, f"[scale] needs ~{need / 1e9:.1f} GB free under {tmp}; {free / 1e9:.1f} GB are")
     t0 = time.perf_counter()
-    root, mapping, cusp = synth_scale_archive(tmp, n_orbits)
+    root, mapping, cusp = synth_scale_archive(tmp, n_orbits, shape)
     faults = inject_faults(mapping, SCALE_FAULTS, SCALE_SEED)
     fault_orbits = {f["orbit"] for f in faults}
+    files = 4 * n_orbits
     archive_bytes = sum(os.path.getsize(p) for paths in mapping.values() for p in paths.values())
+    archive_cube_bytes = files * cube_bytes(shape)
+    limits = {"1": scale_limit_s(n_orbits / 2, shape), "2": scale_limit_s(n_orbits, shape),
+              "host": scale_limit_s(SCALE_TWIN_ORBITS, shape)}
     say("scale", step="archive", orbits=f"{min(mapping)}-{max(mapping)}", n_orbits=n_orbits,
-        shape="x".join(map(str, SCALE_SHAPE)), instruments=4, files=4 * n_orbits, bytes=archive_bytes,
-        free_disk_bytes=free, synth_s=f"{time.perf_counter() - t0:.2f}",
+        shape="x".join(map(str, shape)), instruments=4, files=files, bytes=archive_bytes,
+        cube_bytes=archive_cube_bytes, disk_need_bytes=need, free_disk_bytes=free,
+        host_mem_total_kib=host_mem_total_kib(), synth_s=f"{time.perf_counter() - t0:.2f}",
+        run_limits_s=",".join(f"{k}:{v:.0f}" for k, v in limits.items()),
         faults=",".join(f"{f['orbit']}:{f['instrument']}:{f['kind']}" for f in faults))
 
     site, home = os.path.join(tmp, "site"), os.path.join(tmp, "home")
@@ -3782,7 +3995,7 @@ def run_scale(records: dict, n_orbits: int, tmp: str, device: str = "cuda") -> d
 
     # Run 1: killed once a third of the figures exist and a ledger has flushed a cursor, so that run 2
     # resumes past recorded orbits (each ledger flushes every 10 of its jobs).
-    one = flagship_process(cwd, env, "1", reports["1"], timeout=300 + 6 * n_orbits,
+    one = flagship_process(cwd, env, "1", reports["1"], timeout=limits["1"],
                            kill_when=lambda: len(pngs_of(cwd)) >= kill_at and any(c is not None for c in cursors().values()))
     require(one["killed"], f"[scale] run 1 exited {one['rc']} before {kill_at} PNGs and a cursor existed")
     gone_s = wait_for_context_gone(one)
@@ -3803,12 +4016,15 @@ def run_scale(records: dict, n_orbits: int, tmp: str, device: str = "cuda") -> d
                     builds[what] = float(line.split(" built in ")[1].split(" s")[0])
     libs = {"kernels": glob.glob(os.path.join(cache, "libcst_kernels_*.so")),
             "png_encoder": glob.glob(os.path.join(cache, "libfastpng-*.so"))}
+    report1 = read_report(reports["1"])  # its last write, at most a second before the kill
     say("scale", run=1, rc=one["rc"], killed="yes", seconds=f"{one['seconds']:.2f}", kill_at=kill_at,
-        pngs_written=len(landed), cursors_at_kill=json.dumps(at_kill).replace(" ", ""),
+        pngs_written=len(landed), figures_per_s=f"{len(landed) / one['seconds']:.3f}",
+        cursors_at_kill=json.dumps(at_kill).replace(" ", ""),
         recorded_pngs_at_kill=sum(keys[o, c] for c in SCALE_COMBOS for o in recorded[c]),
         unrecorded_pngs_at_kill=unrecorded, recorded_pngs_missing=len(missing), peak_gpu_mib=one["peak_gpu_mib"] or "not_measured",
-        peak_gpu_used_mib=one["peak_gpu_used_mib"] or "not_measured",
-        context_gone_s=f"{gone_s:.2f}", **{f"build_{k}_s": f"{v:.2f}" for k, v in sorted(builds.items())})
+        peak_gpu_used_mib=one["peak_gpu_used_mib"] or "not_measured", context_gone_s=f"{gone_s:.2f}",
+        **{f"build_{k}_s": f"{v:.2f}" for k, v in sorted(builds.items())},
+        **run_fields(report1, files, archive_cube_bytes))
     require(any(recorded.values()), f"[scale] no ledger had recorded a good orbit at the kill: cursors {at_kill}")
     require(not missing, f"[scale] the ledger recorded figures that are not on disk after the kill: {missing}")
     want_builds = {"kernels", "png_encoder"} if on_card else {"png_encoder"}
@@ -3816,12 +4032,11 @@ def run_scale(records: dict, n_orbits: int, tmp: str, device: str = "cuda") -> d
     require(all(len(libs[k]) == 1 for k in want_builds), f"[scale] libraries in {cache}: {libs}")
 
     # Run 2: completes the archive.
-    two = flagship_process(cwd, env, "2", reports["2"], timeout=300 + 12 * n_orbits)
+    two = flagship_process(cwd, env, "2", reports["2"], timeout=limits["2"])
     require(two["rc"] == 0, f"[scale] run 2 exited {two['rc']} (see scale_2.out)")
     after = pngs_of(cwd)
     rewritten = sorted(r for r in landed if after.get(r) != landed[r])
-    with open(reports["2"]) as f:
-        report2 = json.load(f)
+    report2 = read_report(reports["2"])
     launches = report2["launches"]
     tmp_left = glob.glob(os.path.join(cwd, "FAST_plots", "**", "*.tmp-*"), recursive=True)
     with open(progress_path) as f:
@@ -3830,10 +4045,13 @@ def run_scale(records: dict, n_orbits: int, tmp: str, device: str = "cuda") -> d
                   if isinstance(v, list) and v and ("error" in k or "timed_out" in k)}
     flagged = {o for v in error_keys.values() for o in v}
     say("scale", run=2, rc=two["rc"], seconds=f"{two['seconds']:.2f}", pngs_written=len(after) - len(landed),
+        figures_per_s=f"{(len(after) - len(landed)) / two['seconds']:.3f}",
         pngs=len(after), floor=floor, redone_figures=unrecorded, rewritten=len(rewritten),
         tmp_files_left=len(tmp_left), peak_gpu_mib=two["peak_gpu_mib"] or "not_measured",
-        peak_gpu_used_mib=two["peak_gpu_used_mib"] or "not_measured",
-        max_memory_allocated_mib=f"{report2['max_memory_allocated'] / 2**20:.1f}", launches=json.dumps(launches).replace(" ", ""))
+        peak_gpu_used_mib=two["peak_gpu_used_mib"] or "not_measured", launches=json.dumps(launches).replace(" ", ""),
+        **run_fields(report2, files, archive_cube_bytes))
+    require(report2["decodes"] == report2["dataset_cache"]["misses"],
+            f"[scale] run 2 decoded {report2['decodes']} times on {report2['dataset_cache']['misses']} cache misses")
     say("scale", error_keys=json.dumps(error_keys).replace(" ", ""))
     require(len(after) >= floor, f"[scale] {len(after)} PNGs, fewer than {floor} (9 good orbits' worth)")
     require(not tmp_left, f"[scale] *.tmp-* left after run 2: {tmp_left[:5]}")
@@ -3851,8 +4069,7 @@ def run_scale(records: dict, n_orbits: int, tmp: str, device: str = "cuda") -> d
         progress_again = json.load(f)
     changed = sorted(k for k in set(state_before) | set(state_after)
                      if state_before.get(k) != state_after.get(k) and k != "batch_multi_plot_FAST_progress.json")
-    with open(reports["3"]) as f:
-        report3 = json.load(f)
+    report3 = read_report(reports["3"])
     say("scale", run=3, rc=three["rc"], seconds=f"{three['seconds']:.2f}", files_changed=len(changed),
         progress_json="same content" if progress_again == progress else "changed",
         launches=json.dumps(report3["launches"]).replace(" ", ""),
@@ -3871,7 +4088,7 @@ def run_scale(records: dict, n_orbits: int, tmp: str, device: str = "cuda") -> d
     # saved first; [batch] compares raw-named PNGs for that reason).  Every PNG of the device tree is
     # decoded meanwhile.
     decoding = start_decoding(cwd, list(after))
-    twin_orbits = sorted(mapping)[:2]
+    twin_orbits = sorted(mapping)[:SCALE_TWIN_ORBITS]
     twin = os.path.join(tmp, "scale_host")
     for orbit in twin_orbits:
         for path in mapping[orbit].values():
@@ -3879,8 +4096,7 @@ def run_scale(records: dict, n_orbits: int, tmp: str, device: str = "cuda") -> d
             os.makedirs(os.path.dirname(link), exist_ok=True)
             os.symlink(path, link)
     shutil.copy(cusp, os.path.join(twin, "FAST_Cusp_Indices.csv"))
-    host = flagship_process(twin, dict(env, CST_RENDER_BACKEND="host"), "host", reports["host"],
-                            timeout=300 + 12 * len(twin_orbits))
+    host = flagship_process(twin, dict(env, CST_RENDER_BACKEND="host"), "host", reports["host"], timeout=limits["host"])
     bad = undecodable(decoding)
     require(not bad, f"[scale] PNGs that do not decode: {bad[:5]}")
     require(host["rc"] == 0, f"[scale] the host run exited {host['rc']} (see scale_host.out)")
@@ -3898,13 +4114,27 @@ def run_scale(records: dict, n_orbits: int, tmp: str, device: str = "cuda") -> d
         apart += n
         same += n == 0
     figures_per_s = len(after) / (one["seconds"] + two["seconds"])
+    report_host = read_report(reports["host"])
     say("scale", compare="device vs host", orbits=",".join(map(str, twin_orbits)), files=len(dev_pngs),
-        raw_pngs=len(raw), raw_pixel_identical=same, pixels_one_bin_apart=apart, host_seconds=f"{host['seconds']:.2f}")
-    summary = {"orbits": n_orbits, "pngs": len(after), "floor": floor, "figures_per_s_runs_1_2": round(figures_per_s, 3),
+        raw_pngs=len(raw), raw_pixel_identical=same, pixels_one_bin_apart=apart, host_seconds=f"{host['seconds']:.2f}",
+        host_decodes=report_host["decodes"], host_extrema_s=f"{report_host['extrema_s']:.2f}",
+        host_peak_rss_mib=mib(report_host["host_peak_rss_mib"]))
+    runs12 = (report1, report2)
+    summary = {"orbits": n_orbits, "shape": "x".join(map(str, shape)), "pngs": len(after), "floor": floor,
+               "figures_per_s_runs_1_2": round(figures_per_s, 3),
                "run_s": [round(r["seconds"], 2) for r in (one, two, three)], "pngs_written": [len(landed), len(after) - len(landed), 0],
                "redone_figures": unrecorded, "peak_gpu_mib": [one["peak_gpu_mib"], two["peak_gpu_mib"]],
                "peak_gpu_used_mib": [one["peak_gpu_used_mib"], two["peak_gpu_used_mib"]],
                "run2_max_memory_allocated": report2["max_memory_allocated"],
+               "decodes_per_file_runs_1_2": round(sum(r["decodes"] for r in runs12) / files, 3),
+               "uploads_per_cube_runs_1_2": round(sum(r["upload"].get("upload_bytes", 0) for r in runs12)
+                                                  / archive_cube_bytes, 3),
+               "budget_evictions_runs_1_2": sum(r["budget_evictions"] for r in runs12),
+               "owner_evictions_runs_1_2": sum(r["owner_evictions"] for r in runs12),
+               "extrema_s": [round(r["extrema_s"], 2) for r in runs12],
+               "host_peak_rss_mib": [r["host_peak_rss_mib"] for r in runs12],
+               "pinned_peak_bytes": [r["pinned_peak_bytes"] for r in runs12],
+               "host_mem_total_kib": host_mem_total_kib(),
                "build_s": builds, "context_gone_s": round(gone_s, 2), "error_keys": len(error_keys)}
     say("scale", summary=json.dumps(summary).replace(" ", ""), phase_s=f"{time.perf_counter() - t_phase:.2f}",
         nvidia_smi=repr(nvidia_smi_line()) if on_card else "'no card'")
@@ -3920,11 +4150,17 @@ def main() -> int:
                     help="only build the kernels and sweep them over seeds START .. START + COUNT - 1")
     ap.add_argument("--scale-orbits", type=int, metavar="N", default=None,
                     help="only build the kernels and run [scale] over an archive of N orbits")
+    ap.add_argument("--scale-shape", type=parse_shape, metavar="TxAxE", default=None,
+                    help="with --scale-orbits: the archive's cube shape (default: "
+                         f"{'x'.join(map(str, SCALE_SHAPE))}; the instrument's: 8192x64x128)")
     ap.add_argument("--sanitize", metavar="START:COUNT", nargs="?", const=f"0:{SANITIZE_SEEDS}", default=None,
                     help="only build the kernels and run [sanitize] with all four compute-sanitizer tools over "
                          "the tail cases and sweep seeds START .. START + COUNT - 1")
     ap.add_argument("--sanitizer-child", metavar="SPEC", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    t_start = time.perf_counter()
+    if args.scale_shape is not None and args.scale_orbits is None:
+        ap.error("--scale-shape is used with --scale-orbits")
     sweep = (0, SWEEP_SEEDS)
     if args.sweep_seeds is not None:
         start, _, count = args.sweep_seeds.partition(":")
@@ -3955,7 +4191,7 @@ def main() -> int:
         **{f"import_{k}": v for k, v in libs.items()})
 
     t0 = time.perf_counter()
-    _build.load_library()
+    timed("build", _build.load_library)
     say("build", seconds=f"{time.perf_counter() - t0:.2f}", nvcc_seconds=f"{float(_build.BUILD_INFO['seconds']):.2f}",
         library=os.path.relpath(str(_build.BUILD_INFO["path"])))
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
@@ -3971,7 +4207,10 @@ def main() -> int:
 
     if args.scale_orbits is not None:
         with tempfile.TemporaryDirectory(prefix="cst_chip_scale_") as tmp:
-            got = run_scale({}, args.scale_orbits, tmp)
+            try:
+                got = run_scale({}, args.scale_orbits, tmp, shape=args.scale_shape or SCALE_SHAPE)
+            finally:
+                keep_scale_outputs(tmp, os.path.join(out_dir, "scale"))
         print(smi)
         print(json.dumps({"scale": got}))
         return 0
@@ -3990,19 +4229,24 @@ def main() -> int:
                                     "e2e": got["e2e"]}}))
         return 0
 
-    records = check_kernels(device)
+    records = timed("kernel", check_kernels, device)
     samples = make_audio(AUDIO_SECONDS, AUDIO_RATE)
-    records.update(check_stft_kernel(device, samples.astype(np.float32) / 32768.0))
-    run_sweep(device, *sweep)
-    run_sanitize(device, 0, SANITIZE_SEEDS)
+    records.update(timed("kernel_stft", check_stft_kernel, device, samples.astype(np.float32) / 32768.0))
+    timed("sweep", run_sweep, device, *sweep)
+    timed("sanitize", run_sanitize, device, 0, SANITIZE_SEEDS)
     if not args.kernels:
-        run_async()
-        run_suite()
-        run_font_and_png()
-        run_e2e(records)
-        run_audio(records, samples)
+        timed("async", run_async)
+        timed("suite", run_suite)
+        timed("font_png", run_font_and_png)
+        timed("e2e", run_e2e, records)
+        timed("audio", run_audio, records, samples)
         with tempfile.TemporaryDirectory(prefix="cst_chip_scale_") as tmp:
-            run_scale(records, SCALE_ORBITS, tmp)
+            try:
+                timed("scale", run_scale, records, SCALE_ORBITS, tmp)
+            finally:
+                keep_scale_outputs(tmp, os.path.join(out_dir, "scale"))
+    say("phases", **{f"{k}_s": f"{v:.2f}" for k, v in PHASE_SECONDS.items()},
+        total_s=f"{time.perf_counter() - t_start:.2f}")
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -60,10 +60,21 @@ def clear_dataset_cache() -> None:
     with _dataset_cache_lock:
         _dataset_cache.clear()
         _dataset_cache_bytes = 0
-#: Byte budget for cached datasets (FIFO eviction).  Sized so a batch
-#: driver's worker threads (4 workers x 4 instruments x ~13 MB synthetic /
-#: ~200 MB real cubes) don't thrash, without letting real-dimension
-#: archives exhaust host memory.
+#: Byte budget for cached datasets (FIFO eviction).  A dataset costs about
+#: its cube: 268 MB for the instrument's 8192x64x128 float32 cube (12.6 MB
+#: for the 2048x32x48 bench cube), so 1.5 GB holds about 5 real cubes.
+#: The batch driver's 4 workers x 4 instruments may want 16 at once, and
+#: the orbit-major schedule's working set of 1-2 orbits is 4-8 of them: at
+#: the real size the cache thrashes where the workers straddle two orbits.
+#: The device cube cache (render/device_cache.py) keys its padded copies
+#: on the host cube and drops one when that cube dies, so a dataset this
+#: cache evicts takes its device copy with it, and the device budget (a
+#: quarter of the card) is bounded in practice by this one; a cube decoded
+#: again is uploaded again.  Measured over 12 and 20 real orbits on one
+#: H100 (``chip_smoke.py --scale-orbits 12 --scale-shape 8192x64x128``):
+#: 3.06-3.27 decodes per file and 1.93-1.96 uploads per cube over a killed
+#: and a resumed run (the extrema pre-pass's one of each included), no
+#: eviction by the device budget, and 3.8 GB allocated on the card at most.
 _DATASET_CACHE_MAX_BYTES = int(os.environ.get("CST_DATASET_CACHE_BYTES", 1_500_000_000))
 
 
@@ -386,8 +397,10 @@ def _decode_fast_cdf(cdf_path: str, variable_names: tuple[str, ...]) -> dict[str
         data = np.asarray(handle.varget(d_name))
         energy_raw = np.asarray(handle.varget(e_name))
         pitch_raw = np.asarray(handle.varget(p_name))
-    energy = energy_raw[0, 0, :] if energy_raw.ndim == 3 else energy_raw
-    pitch_angle = pitch_raw[0, :, 0] if pitch_raw.ndim == 3 else pitch_raw
+    # Copies, not views: a view of the (T, A, E) broadcast variable keeps the whole of it alive in the
+    # dataset cache, which counts the view's bytes only (an 8192x64x128 file's entry held 805 MB, not 268).
+    energy = energy_raw[0, 0, :].copy() if energy_raw.ndim == 3 else energy_raw
+    pitch_angle = pitch_raw[0, :, 0].copy() if pitch_raw.ndim == 3 else pitch_raw
     if data.shape[1] == len(energy) and data.shape[2] == len(pitch_angle):
         data = np.transpose(data, (0, 2, 1))
     return {
