@@ -21,6 +21,7 @@ import numpy as np
 from configurable_spectrograms_torch.cli.common import report_render_outcome, run_cli
 from configurable_spectrograms_torch.ops.stft import METHODS, audio_spectrogram_dataset
 from configurable_spectrograms_torch.render.plotting import generic_plot_spectrogram_set
+from configurable_spectrograms_torch.utils.timing import active_stage
 
 
 def load_wav(path: str) -> tuple[np.ndarray, int]:
@@ -56,7 +57,8 @@ def render_audio_spectrogram(
     stft_method: str = "fft",
 ) -> bool:
     """WAV -> one spectrogram PNG at 150 DPI; returns whether a figure was written."""
-    signal, rate = load_wav(wav_path)
+    with active_stage("wav_load"):
+        signal, rate = load_wav(wav_path)
     dataset = audio_spectrogram_dataset(
         signal, rate, frame_length=frame_length, hop_length=hop_length, n_mels=n_mels,
         label=Path(wav_path).stem, method=stft_method,

@@ -21,6 +21,7 @@ from configurable_spectrograms_torch.constants import (
 )
 from configurable_spectrograms_torch.data.cdf import CDF
 from configurable_spectrograms_torch.utils.logging import log_error, log_message
+from configurable_spectrograms_torch.utils.timing import active_stage
 
 #: Recognized filename tags.  ``esv`` extends the reference's set (its
 #: download.py:22 notes esv CDFs exist but never recognizes them); the
@@ -360,7 +361,8 @@ def load_fast_cdf_dataset(
                 # The loader failed (its exception propagates on its own
                 # thread); loop back so one waiter becomes the new loader.
 
-        result = _decode_fast_cdf(cdf_path, variable_names)
+        with active_stage("cdf_decode"):
+            result = _decode_fast_cdf(cdf_path, variable_names)
         if my_event is None:
             return result  # mtime unavailable: uncacheable, no waiters
         my_event.result = result  # waiters get the arrays even when uncacheable

@@ -13,12 +13,15 @@ and PNG encode (PIL and zlib release the interpreter lock) while the
 device work of every thread queues on the card's stream.  ``max_workers``
 sizes the thread pool (:func:`..render.backend.recommended_workers`).
 Multi-process runs read their rank and world size from
-``torch.distributed`` when it is initialised.
+``torch.distributed`` when it is initialised.  ``CST_PROFILE_DIR`` set:
+each driver call, its extrema pre-pass and its job pool, runs under
+:func:`..utils.timing.device_trace` and drops a Chrome trace there.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import json
 import os
 import signal
@@ -49,6 +52,7 @@ from configurable_spectrograms_torch.utils.progress import (
     atomic_write_json,
     tqdm_or_none,
 )
+from configurable_spectrograms_torch.utils.timing import device_trace
 
 _INSTRUMENT_KEYS = ("ees", "eeb", "ies", "ieb")
 
@@ -439,14 +443,11 @@ def _run_job_pool(
     ``KeyboardInterrupt`` the pool is cancelled and ``KeyboardInterrupt``
     propagates; *on_drained* (if given) runs after the wait loop but
     before the shutdown re-raise, mirroring the driver's pre-raise
-    force-flush.  ``CST_PROFILE_DIR`` set: the plotting pass runs under
-    :func:`..utils.timing.device_trace` and drops a Chrome trace there.
+    force-flush.
     """
     from configurable_spectrograms_torch.render.backend import recommended_workers
-    from configurable_spectrograms_torch.utils.timing import device_trace
 
     executor: concurrent.futures.Executor | None = None
-    profile_dir = os.environ.get("CST_PROFILE_DIR")
     try:
         executor = concurrent.futures.ThreadPoolExecutor(max_workers=recommended_workers(max_workers))
         future_meta: dict[concurrent.futures.Future, tuple[int, Any]] = {}
@@ -459,18 +460,17 @@ def _run_job_pool(
         tqdm = tqdm_or_none() if show_bar else None
         bar = None if tqdm is None else tqdm(total=len(outstanding), desc=bar_desc, unit="orbit", leave=False)
         try:
-            with device_trace(profile_dir):
-                while outstanding and not shutdown["flag"]:
-                    done, _ = concurrent.futures.wait(
-                        outstanding, timeout=0.2, return_when=concurrent.futures.FIRST_COMPLETED
-                    )
-                    for fut in done:
-                        outstanding.discard(fut)
-                        orbit, ctx = future_meta[fut]
-                        consume(fut, orbit, ctx)
-                        if bar is not None:
-                            bar.set_postfix(orbit=orbit)
-                            bar.update(1)
+            while outstanding and not shutdown["flag"]:
+                done, _ = concurrent.futures.wait(
+                    outstanding, timeout=0.2, return_when=concurrent.futures.FIRST_COMPLETED
+                )
+                for fut in done:
+                    outstanding.discard(fut)
+                    orbit, ctx = future_meta[fut]
+                    consume(fut, orbit, ctx)
+                    if bar is not None:
+                        bar.set_postfix(orbit=orbit)
+                        bar.update(1)
         finally:
             if bar is not None:
                 bar.close()
@@ -511,6 +511,18 @@ def _worker_args(orbit: int, files: dict[str, str], filtered_orbits_dataframe, z
             extrema, override_plots, cusp_marker_style, cusp_marker_kwargs)
 
 
+def _profiled(driver):
+    """Run a batch driver call under :func:`..utils.timing.device_trace` into ``CST_PROFILE_DIR`` (unset: no trace)."""
+
+    @functools.wraps(driver)
+    def run(*args, **kwargs):
+        with device_trace(os.environ.get("CST_PROFILE_DIR")):
+            return driver(*args, **kwargs)
+
+    return run
+
+
+@_profiled
 def FAST_plot_spectrograms_directory(
     directory_path: str = FAST_CDF_DATA_FOLDER_PATH,
     output_base: str = FAST_OUTPUT_BASE,
@@ -611,6 +623,7 @@ def _normalize_combo(combo) -> tuple[str, str, str]:
     return (str(y_scale), str(z_scale), str(colormap))
 
 
+@_profiled
 def FAST_plot_spectrograms_multi(
     directory_path: str = FAST_CDF_DATA_FOLDER_PATH,
     combos: tuple = (

@@ -41,6 +41,7 @@ from configurable_spectrograms_torch.ops.extrema_ops import HIST_BINS, batched_f
 from configurable_spectrograms_torch.utils.logging import log_exception
 from configurable_spectrograms_torch.utils.percentiles import round_extrema
 from configurable_spectrograms_torch.utils.progress import atomic_write_json, tqdm_or_none
+from configurable_spectrograms_torch.utils.timing import active_stage
 
 
 def extrema_overrides(
@@ -248,7 +249,8 @@ def compute_global_extrema(
                     candidate_e = float(es[idx])
                 if exact_percentile:
                     try:
-                        candidate_z = trackers[inst].percentile(max_percentile)
+                        with active_stage("prepass_tracker"):
+                            candidate_z = trackers[inst].percentile(max_percentile)
                     except Exception as exc:
                         log_exception(
                             f"[EXTREMA] exact percentile failed inst={inst} orbit={orbit}; "
@@ -270,7 +272,8 @@ def compute_global_extrema(
                 if compute_mins and hists[inst].sum() > 0:
                     if exact_percentile:
                         try:
-                            z_min_store = trackers[inst].percentile(1.0)
+                            with active_stage("prepass_tracker"):
+                                z_min_store = trackers[inst].percentile(1.0)
                         except Exception:
                             z_min_store = hist_percentile(hists[inst], 1.0)
                     else:
@@ -316,7 +319,8 @@ def compute_global_extrema(
                             exc,
                             level="message",
                         )
-            stats = batched_file_stats([cube for _, _, cube, _, _ in loaded])
+            with active_stage("prepass_stats"):
+                stats = batched_file_stats([cube for _, _, cube, _, _ in loaded])
             stats_by_orbit: dict[int, list] = {}
             for (orbit, inst, cube, energy, path), st in zip(loaded, stats):
                 stats_by_orbit.setdefault(orbit, []).append((inst, energy, st, cube, path))
@@ -340,7 +344,10 @@ def compute_global_extrema(
                         # ulp at a bin edge, and mixing the device histogram
                         # with host-gathered values would trip the tracker's
                         # count consistency check.
-                        trackers[inst].add(collapsed_positives(cube), _regather_from(path))
+                        with active_stage("prepass_host_collapse"):
+                            positives = collapsed_positives(cube)
+                        with active_stage("prepass_tracker"):
+                            trackers[inst].add(positives, _regather_from(path))
                 _update_state_for_orbit(orbit_index, orbit)
                 if bar is not None:
                     bar.update(1)

@@ -198,10 +198,12 @@ def enqueue_render_panels(panels: list[PanelData], tile_h: int, tile_w: int) -> 
         for (_, _, _, y_scale, z_scale, lo_pct, hi_pct, _, _), idxs in groups.items():
             _render_group_host(panels, idxs, tile_h, tile_w, y_scale, z_scale, lo_pct, hi_pct, results)
         return PendingRender(panels, tile_h, tile_w, results, [])
+    from configurable_spectrograms_torch.utils.timing import active_stage
     from configurable_spectrograms_torch.utils.torch_setup import get_device
 
     device = get_device()
-    buckets = [_enqueue_group(panels, idxs, key, tile_h, tile_w, device) for key, idxs in groups.items()]
+    with active_stage("device_dispatch"):
+        buckets = [_enqueue_group(panels, idxs, key, tile_h, tile_w, device) for key, idxs in groups.items()]
     LAST_DISPATCH["device"] = str(device)
     return PendingRender(panels, tile_h, tile_w, results, buckets)
 

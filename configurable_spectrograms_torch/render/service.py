@@ -27,8 +27,11 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
+
+from configurable_spectrograms_torch.utils import timing
 
 
 @dataclass
@@ -37,6 +40,8 @@ class _Request:
     tile_h: int
     tile_w: int
     future: Future = field(default_factory=Future)
+    #: ``perf_counter`` at enqueue while a stage timer is active (else None).
+    t_enqueued: float | None = None
 
 
 #: Batches enqueued but not yet drained (the JAX package's default depth).
@@ -78,11 +83,25 @@ class RenderCoalescer:
         if not coalescing() or not panels:
             return device_render_panels(panels, tile_h, tile_w)
         req = _Request(panels, tile_h, tile_w)
+        if timing.ACTIVE is not None:
+            req.t_enqueued = time.perf_counter()
         with self._lock:
             self._queue.append(req)
             self._ensure_thread()
             self._wake.notify()
-        return req.future.result()
+        with timing.active_stage("render_wait"):
+            return req.future.result()
+
+    @staticmethod
+    def _note_queue_wait(reqs: list[_Request]) -> None:
+        """Each request's wait from its enqueue until its group won an in-flight slot (``render_queue_wait``)."""
+        timer = timing.ACTIVE
+        if timer is None:
+            return
+        now = time.perf_counter()
+        for r in reqs:
+            if r.t_enqueued is not None:
+                timer.add("render_queue_wait", now - r.t_enqueued, now)
 
     @staticmethod
     def _resolve(reqs: list[_Request], results: list[dict]) -> None:
@@ -131,6 +150,7 @@ class RenderCoalescer:
                 for (tile_h, tile_w), reqs in by_geometry.items():
                     all_panels = [p for r in reqs for p in r.panels]
                     self._inflight.acquire()
+                    self._note_queue_wait(reqs)
                     try:
                         pending = enqueue_render_panels(all_panels, tile_h, tile_w)
                     except Exception as exc:

@@ -34,6 +34,8 @@ import os
 import threading
 from contextlib import contextmanager
 
+from configurable_spectrograms_torch.utils.timing import active_stage
+
 _LOCK = threading.Lock()
 _GATE: threading.BoundedSemaphore | None = None
 _GATE_SLOTS = 0
@@ -92,7 +94,8 @@ def host_compute_gate():
             _TLS.depth = depth
         return
     gate = _gate(n)
-    gate.acquire()
+    with active_stage("gate_wait"):
+        gate.acquire()
     _TLS.depth, _TLS.gate, _TLS.holds = 1, gate, True
     try:
         yield
@@ -134,5 +137,6 @@ def gate_released():
     try:
         yield
     finally:
-        gate.acquire()
+        with active_stage("gate_wait"):
+            gate.acquire()
         _TLS.depth, _TLS.gate, _TLS.holds = depth, gate, True
