@@ -35,7 +35,15 @@ Phases, one line each, in order:
                error within 4x the plain version's; cuBLAS (two matmuls on a
                contiguous copy of the frames) timed beside it.  CUDA-event
                timings: the median of 5 windows of 4 back-to-back calls after
-               warm-up (plain versions: 2 windows).  Each [kernel] line has
+               warm-up (plain versions: 2 windows).  percentile_quantize at
+               the benchmark's collapse-route buckets (PQ_SHAPES: an audio
+               figure's 1 lane of 1024x520, a FAST orbit's 8 lanes of
+               1024x96), both z scales, held to eager quantize_matrix on the
+               card with the select on and off (scalars, kept columns and
+               flags bit for bit, each index exact or one bin apart on a
+               bin boundary); its ms the kernel alone (5 windows of 20
+               launches through its C entry), wrapper_ms the dispatch's call,
+               plain_ms the eager chain.  Each [kernel] line has
                bound_ms (the larger of bytes / 3.35 TB/s and, for stft_power,
                3 x 4FKL / 495 TFLOP/s), bound_share and library_ms.
    sweep    -- each kernel against its plain version on seeded cases
@@ -123,7 +131,8 @@ Phases, one line each, in order:
                log/log per-orbit render on the device, then again with
                CST_RENDER_BACKEND=host; every panel's bounds must agree bit
                for bit and its index cells exactly, or one bin apart on a
-               provable bin boundary; both kernels must have launched during
+               provable bin boundary; the three render kernels (collapse,
+               fused_quantize, percentile_quantize) must have launched during
                the device run.  Per orbit, a [breakdown] line: the first
                device dispatch's seconds and its upload telemetry (h2d_bytes,
                cube-cache hits and misses), then a second device render of
@@ -169,8 +178,8 @@ Phases, one line each, in order:
                cuda:0 with collapse launches, pixels equal to the single
                FAST CLI's --data-folder PNG.  (b) Plot, one combo
                (log-log), percentile 99, into a fresh tree: the progress
-               label shows "log_log @ orbit ...", "Finished.", both kernels
-               launched in the child, the file list equal to the [batch]
+               label shows "log_log @ orbit ...", "Finished.", the three
+               render kernels launched in the child, the file list equal to the [batch]
                device tree's log_log subset, every raw-named PNG
                pixel-equal; the extrema JSON equal to that tree's
                linear_linear entries under log_log names (a fresh log_log
@@ -256,8 +265,8 @@ Phases, one line each, in order:
                compute apps, then completes the archive: exit 0, PNGs at
                least 9 good orbits' worth (tools/scale_run.py's floor), the
                faulted orbits and only they in the progress JSON's error
-               keys, no ``*.tmp-*`` file, every PNG decodes, both kernels
-               launched (the child's launch report).  Run 3 must exit
+               keys, no ``*.tmp-*`` file, every PNG decodes, the three
+               render kernels launched (the child's launch report).  Run 3 must exit
                0 within 30 s, change no file but the log (the progress JSON
                keeps its content) and launch and dispatch nothing.  The
                installed copy's tree (names, sizes, mtimes) must not have
@@ -326,12 +335,19 @@ REPLACES = {
     "collapse": "configurable_spectrograms_tpu/ops/pallas_kernels.py:32",
     "fused_quantize": "configurable_spectrograms_tpu/ops/pallas_kernels.py:44",
     "stft_power": "configurable_spectrograms_tpu/ops/pallas_kernels.py:244",
+    "percentile_quantize": "configurable_spectrograms_tpu/ops/spectrogram.py:353",  # XLA's ops, no kernel
 }
 SOURCES = {
     "collapse": "configurable_spectrograms_torch/csrc/collapse.cu",
     "fused_quantize": "configurable_spectrograms_torch/csrc/fused_quantize.cu",
     "stft_power": "configurable_spectrograms_torch/csrc/stft_power.cu",
+    "percentile_quantize": "configurable_spectrograms_torch/csrc/percentile_quantize.cu",
 }
+#: The collapse route's buckets as the benchmark's cells serve them, (lanes, T, E, t_valid): an audio
+#: figure (5 s at 44.1 kHz, hop 256, 513 bins padded to 520) and a FAST orbit's raw panels (T 903, 96 bins).
+PQ_SHAPES = {"audio": (1, 1024, 520, 862), "fast": (8, 1024, 96, 903)}
+#: The kernels every device render of a FAST archive launches: the collapse route's two, the fused route's one.
+RENDER_KERNELS = ("collapse", "fused_quantize", "percentile_quantize")
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA's data sheet (SXM, 700 W)
 H100_TF32_FLOPS = 495e12  # dense TF32 tensor cores, NVIDIA's data sheet (SXM, 700 W)
 STFT_EXTRA_SECONDS = 30  # audio for the odd shapes of the stft_power check
@@ -653,6 +669,122 @@ def fused_layouts(x: dict, device) -> list[tuple[str, tuple]]:
     return out
 
 
+def percentile_bucket(rng, L: int, T: int, E: int, cells: str = "spectrum", t_valid=None) -> dict:
+    """A collapse-route bucket as the dispatch hands it to ``percentile_quantize_lanes``, as numpy arrays:
+    (L, T, E) float32 sums (log-normal, 5% NaN; ``cells="signed"`` adds negatives and zeros) with rows at
+    or past each lane's ``t_valid`` NaN (random in [T / 2, T] unless given), windows inside the file,
+    energies rising and falling, 90% of the columns valid, bounds NaN (from the percentiles)."""
+    m = np.exp(rng.normal(0.0, 3.0, (L, T, E))).astype(np.float32)
+    if cells == "signed":
+        m[rng.random(m.shape) < 0.3] *= -1.0
+        m[rng.random(m.shape) < 0.01] = 0.0
+    m[rng.random(m.shape) < 0.05] = np.nan
+    tv = rng.integers(T // 2, T + 1, L) if t_valid is None else np.full(L, t_valid)
+    tv = tv.astype(np.int32)
+    for j in range(L):
+        m[j, tv[j]:] = np.nan
+    t_start = rng.integers(0, T // 4, L).astype(np.int32)
+    energy = np.stack([np.geomspace(10.0, 3e4, E) if j % 2 else np.geomspace(3e4, 10.0, E) for j in range(L)])
+    e_valid = rng.random((L, E)) < 0.9
+    return {"matrix": m, "energy": energy.astype(np.float32), "e_valid": e_valid, "t_valid": tv,
+            "t_start": t_start, "t_count": (tv - t_start).astype(np.int32),
+            "z_bounds": np.full((L, 2), np.nan, np.float32),
+            "zb_e_valid": e_valid & (rng.random((L, E)) < 0.95), "zb_full_time": rng.random(L) < 0.3}
+
+
+PQ_SCALARS = ("vmin", "vmax", "y0", "y1")  # float32, bit for bit (NaN where both are NaN)
+PQ_EXACT = ("n_kept", "kept_pos", "flip", "empty")
+
+
+def percentile_contract(got: dict, want: dict, matrix: np.ndarray, z_scale: str) -> tuple[list[str], int]:
+    """The percentile-quantize kernel's result (*got*, numpy) against ``quantize_matrix``'s (*want*) on the
+    lanes' (L, T, E) *matrix*: (what breaks the contract, cells one bin apart).  The contract: PQ_SCALARS
+    and PQ_EXACT bit for bit, each index exact or one bin apart where the cell sits on a bin boundary
+    (:func:`boundary_mask`: two float32 log10s round to neighbouring bins)."""
+    faults = []
+    for k in PQ_SCALARS:
+        a, b = got[k].astype(np.float32), want[k].astype(np.float32)
+        same = (a.view(np.int32) == b.view(np.int32)) | (np.isnan(a) & np.isnan(b))
+        if not same.all():
+            faults.append(f"{k} {a[~same]} vs {b[~same]} in lanes {np.flatnonzero(~same)}")
+    for k in PQ_EXACT:
+        if not np.array_equal(got[k].astype(np.int64), want[k].astype(np.int64)):
+            faults.append(f"{k} differs")
+    d = np.abs(got["idx"].astype(np.int32) - want["idx"].astype(np.int32))
+    if d.max(initial=0) > 1:
+        faults.append(f"{d.max()} bins apart")
+    off = 0
+    for j in np.flatnonzero(d.reshape(len(d), -1).max(axis=1, initial=0) > 0):
+        with np.errstate(all="ignore"):
+            on = boundary_mask(matrix[j], float(want["vmin"][j]), float(want["vmax"][j]), z_scale, d[j] > 0)
+        if on.sum() != (d[j] > 0).sum():
+            faults.append(f"lane {j}: {(d[j] > 0).sum() - on.sum()} cells one bin apart off a boundary")
+        off += int((d[j] > 0).sum())
+    return faults, off
+
+
+def percentile_case(K, name: str, x: dict, z_scale: str) -> dict:
+    """The percentile-quantize kernel on one bucket (tensors on the card) in one z scale: held to eager
+    ``quantize_matrix`` on the card with the select on and off (:func:`percentile_contract`), then timed:
+    ``ms`` the kernel alone (CUDA events around 20 launches through its C entry, whose host work is a few
+    us), ``wrapper_ms`` ``percentile_quantize_lanes`` as the dispatch calls it (host work included),
+    ``plain_ms`` the eager chain it replaced; ``bound_ms`` the matrix read once and the uint8 indices
+    written once, at 3.35 TB/s."""
+    import torch
+
+    from configurable_spectrograms_torch.ops._build import load_library
+    from configurable_spectrograms_torch.ops.spectrogram import RenderSpec, quantize_matrix
+
+    spec = RenderSpec(8, 8, "linear", z_scale)
+    m = x["matrix"]
+    L, T, E = m.shape
+
+    def call(fn, skip: bool = False):
+        return lambda: fn(m, x["energy"], x["e_valid"], x["t_valid"], x["t_start"], x["t_count"], x["z_bounds"],
+                          spec, zb_e_valid=x["zb_e_valid"], zb_full_time=x["zb_full_time"], skip_percentile=skip)
+
+    host = m.cpu().numpy()
+    faults, off = [], 0
+    for skip in (False, True):
+        got = {k: v.cpu().numpy() for k, v in call(K.percentile_quantize_lanes, skip)().items()}
+        want = {k: v.cpu().numpy() for k, v in call(quantize_matrix, skip)().items()}
+        f, n = percentile_contract(got, want, host, z_scale)
+        faults += [f"select {'off' if skip else 'on'}: {msg}" for msg in f]
+        off += n
+    idx, words, flags = K.percentile_quantize_buffers(L, T, E, m.device)
+    c_args = K.percentile_quantize_args(tuple(x[k] for k in ("matrix", "energy", "e_valid", "zb_e_valid", "t_valid",
+                                                             "t_start", "t_count", "z_bounds", "zb_full_time")),
+                                        z_scale, spec.low_percentile, spec.high_percentile, True, idx, words, flags)
+    lib = load_library()
+    ms = cuda_time_ms(lambda: lib.cst_percentile_quantize(*c_args), reps=100, window=20)
+    wrapper_ms = cuda_time_ms(call(K.percentile_quantize_lanes))
+    plain_ms = cuda_time_ms(call(quantize_matrix), reps=8)
+    bound_ms, bound_by = bound(L * T * E * (4 + 1))
+    say("kernel", name="percentile_quantize", case=name, z=z_scale, shape=f"{L}x{T}x{E}",
+        t_valid=int(x["t_valid"][0]), cells_one_bin_apart=off, contract="held" if not faults else "broken",
+        ms=f"{ms:.4f}", wrapper_ms=f"{wrapper_ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=None,
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, bound_share=f"{bound_ms / ms:.4f}")
+    require(not faults, f"percentile-quantize kernel outside its contract: {name} z={z_scale}: " + "; ".join(faults))
+    del idx, words, flags
+    torch.cuda.synchronize()
+    return {"max_abs_err": float(1 if off else 0), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def check_percentile(K, device) -> dict:
+    """The percentile-quantize kernel at PQ_SHAPES in both z scales; the record of the audio bucket in log z."""
+    import torch
+
+    record = None
+    for name, (L, T, E, t_valid) in PQ_SHAPES.items():
+        b = percentile_bucket(np.random.default_rng(L * T + E), L, T, E, t_valid=t_valid)
+        x = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in b.items()}
+        for z_scale in ("log", "linear"):
+            rec = percentile_case(K, name, x, z_scale)
+            record = record or rec
+    return record
+
+
 def check_kernels(device) -> dict:
     """Kernel vs plain on the card at each shape; returns the record per kernel."""
     import torch
@@ -676,6 +808,7 @@ def check_kernels(device) -> dict:
             fused_phases(K, bucket, z_scale)
         del x, layouts, bucket
     check_collapse_layouts(K, device)
+    records["percentile_quantize"] = check_percentile(K, device)
     return records
 
 
@@ -955,7 +1088,7 @@ def run_e2e(records: dict, small=SHAPES[1], big=SHAPES[0]) -> None:
                 say("e2e", backend="device", launches=json.dumps(launches),
                     extrema_launches=json.dumps(launches_extrema))
                 require(launches_extrema["collapse"] > 0, "the extrema pre-pass launched no collapse kernel")
-                require(not have_pil or min(launches["collapse"], launches["fused_quantize"]) > 0,
+                require(not have_pil or min(launches[k] for k in RENDER_KERNELS) > 0,
                         f"a kernel of the render path never launched: {launches}")
                 add_launches(records, launches)
         require(extrema["device"] == extrema["host"], "extrema JSON differs between backends")
@@ -982,8 +1115,8 @@ def run_e2e(records: dict, small=SHAPES[1], big=SHAPES[0]) -> None:
                 if backend == "device":
                     tele = telemetry_since(before)
             if not have_pil:
-                add_launches(records, {k: K.LAUNCHES[k] for k in ("collapse", "fused_quantize")})
-                require(min(K.LAUNCHES["collapse"], K.LAUNCHES["fused_quantize"]) > 0,
+                add_launches(records, {k: K.LAUNCHES[k] for k in RENDER_KERNELS})
+                require(min(K.LAUNCHES[k] for k in RENDER_KERNELS) > 0,
                         f"a kernel of the render path never launched: {K.LAUNCHES}")
             cells, off, on_boundary = compare_panels(panels, results["device"], results["host"])
             n_panels += len(panels)
@@ -1170,7 +1303,7 @@ def check_stft_kernel(device, signal: np.ndarray) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# [sweep]: the three kernels against their plain versions on seeded cases
+# [sweep]: the kernels against their plain versions on seeded cases
 # ---------------------------------------------------------------------------
 
 SWEEP_SEEDS = 160  # the default run's seeds: 0 .. SWEEP_SEEDS - 1 (about 60 s on the card)
@@ -1271,7 +1404,7 @@ def _sweep_bounds(rng, kind: str, scale: float) -> tuple[float, float]:
 
 
 def sweep_case(seed: int, max_cells: int | None = None) -> dict:
-    """One seeded case for all three kernels, drawn from ``numpy.random.default_rng(seed)``.
+    """One seeded case for every kernel, drawn from ``numpy.random.default_rng(seed)``.
 
     collapse / fused_quantize: 1-3 cubes (U, T, A, E), either padded as the
     dispatch pads a bucket (T a multiple of 256 up to 8192, A a multiple of
@@ -1390,6 +1523,23 @@ def _sweep_lanes(case: dict, device) -> dict:
             for k in ("cubes", "u_idx", "masks", "e_valid", "t_valid", "t_start", "t_count", "z_bounds")}
 
 
+def sweep_percentile_lanes(case: dict, matrix, device) -> dict:
+    """A sweep case's collapsed lanes (*matrix*, on *device*) as a collapse-route bucket hands them to
+    ``percentile_quantize_lanes``: energies rising, 70% of the bounds NaN (from the percentiles) and the
+    rest the case's, ``zb_e_valid`` 90% of ``e_valid``, 30% of the lanes' bounds over the whole file;
+    drawn from the case's seed."""
+    import torch
+
+    rng = np.random.default_rng(case["seed"])
+    L, E = len(case["u_idx"]), case["shape"][3]
+    zb = case["z_bounds"].copy()
+    zb[rng.random(zb.shape) < 0.7] = np.nan
+    arrays = {"energy": np.tile(np.geomspace(10.0, 3e4, E).astype(np.float32), (L, 1)), "z_bounds": zb,
+              "zb_e_valid": case["e_valid"] & (rng.random((L, E)) < 0.9), "zb_full_time": rng.random(L) < 0.3,
+              **{k: case[k] for k in ("e_valid", "t_valid", "t_start", "t_count")}}
+    return {"matrix": matrix, **{k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrays.items()}}
+
+
 def sweep_kernels(K, case: dict, device) -> dict[str, dict]:
     """One case through each kernel and its plain version on the card, held to the fixed cases' rules.
 
@@ -1397,8 +1547,10 @@ def sweep_kernels(K, case: dict, device) -> dict[str, dict]:
     collapse cell not bit-identical, NaN placement included; a fused cell
     more than a bin apart or one bin apart off a proven bin boundary, and
     every vmin or col_all_nan entry that differs; a stft_power cell outside
-    ``stft_tolerance``), ``on_boundary`` (fused cells one bin apart on a
-    proven boundary) and ``worst_rel`` (collapse: the largest
+    ``stft_tolerance``; percentile_quantize: the breaches of
+    :func:`percentile_contract` on :func:`sweep_percentile_lanes`, listed
+    under ``faults``), ``on_boundary`` (fused and percentile_quantize cells
+    one bin apart on a proven boundary) and ``worst_rel`` (collapse: the largest
     |kernel - plain| / |plain|; fused: the largest relative vmin
     difference; stft_power: the largest ratio to the tolerance, <= 1 passes).
     """
@@ -1438,7 +1590,20 @@ def sweep_kernels(K, case: dict, device) -> dict[str, dict]:
     out["fused_quantize"] = {"cells": d.numel(), "off": far + int(near.sum()) - on_boundary + vmin_off + nan_off,
                              "on_boundary": on_boundary,
                              "worst_rel": float(np.nan_to_num(vrel, nan=0.0).max()) if vrel.size else 0.0}
-    del fg, fw, d, near, want
+    del fg, fw, d, near
+
+    from configurable_spectrograms_torch.ops.spectrogram import RenderSpec, quantize_matrix
+
+    q = sweep_percentile_lanes(case, want, device)
+    spec = RenderSpec(8, 8, "linear", z)
+    res = [{k: v.cpu().numpy() for k, v in fn(q["matrix"], q["energy"], q["e_valid"], q["t_valid"], q["t_start"],
+                                              q["t_count"], q["z_bounds"], spec, zb_e_valid=q["zb_e_valid"],
+                                              zb_full_time=q["zb_full_time"]).items()}
+           for fn in (K.percentile_quantize_lanes, quantize_matrix)]
+    faults, near_pq = percentile_contract(*res, want.cpu().numpy(), z)
+    out["percentile_quantize"] = {"cells": want.numel(), "off": len(faults), "on_boundary": near_pq,
+                                  "worst_rel": 0.0, "faults": faults}
+    del q, res, want
 
     s = case["stft"]
     sig = torch.from_numpy(s["signal"]).to(device)
@@ -1561,7 +1726,7 @@ def run_sweep(device, first: int, count: int) -> dict:
 
     from configurable_spectrograms_torch.ops import kernels as K
 
-    names = ("collapse", "fused_quantize", "stft_power")
+    names = ("collapse", "fused_quantize", "stft_power", "percentile_quantize")
     tot = {k: {"cases": 0, "cells": 0, "off": 0, "on_boundary": 0, "worst_rel": 0.0} for k in names}
     e2e = {"seeds": 0, "panels": 0, "cells": 0, "one_bin_apart": 0, "on_boundary": 0, "divergent": 0}
     failures = []
@@ -1580,7 +1745,8 @@ def run_sweep(device, first: int, count: int) -> dict:
             t["worst_rel"] = max(t["worst_rel"], r["worst_rel"])
             if r["off"]:
                 failures.append((k, case))
-                say("sweep", FAIL=k, off=r["off"], worst_rel=r["worst_rel"], case=describe_case(case, k))
+                say("sweep", FAIL=k, off=r["off"], worst_rel=r["worst_rel"], case=describe_case(case, k),
+                    **({"faults": repr(" | ".join(r["faults"]))} if r.get("faults") else {}))
         if seed in SWEEP_PINNED_SEEDS or 0 <= seed - first < SWEEP_E2E_SEEDS:
             r = sweep_e2e(case)
             e2e["seeds"] += 1
@@ -1599,7 +1765,8 @@ def run_sweep(device, first: int, count: int) -> dict:
         t = tot[k]
         say("sweep", kernel=k, seeds=f"{first}:{count}", cases=t["cases"], cells=t["cells"],
             off_boundary=t["off"], worst_rel=t["worst_rel"],
-            **({"one_bin_apart_on_a_boundary": t["on_boundary"]} if k == "fused_quantize" else {}))
+            **({"one_bin_apart_on_a_boundary": t["on_boundary"]} if k in ("fused_quantize", "percentile_quantize")
+               else {}))
     say("sweep", check="e2e", seeds=e2e["seeds"], panels=e2e["panels"], cells=e2e["cells"],
         cells_one_bin_apart=e2e["one_bin_apart"], of_them_on_a_bin_boundary=e2e["on_boundary"],
         backends_divergent_panels=e2e["divergent"], seconds=f"{seconds:.2f}")
@@ -1609,7 +1776,7 @@ def run_sweep(device, first: int, count: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# [sanitize]: the three kernels under compute-sanitizer, and between poisoned guard zones
+# [sanitize]: the kernels under compute-sanitizer, and between poisoned guard zones
 # ---------------------------------------------------------------------------
 
 SANITIZE_TOOLS = ("memcheck", "racecheck")  # the default run's tools
@@ -1624,7 +1791,8 @@ SANITIZE_STFT = ((1024, 256, 2000), (8192, 2048, 64), (1000, 250, 600), (1000, 2
 SANITIZE_EXIT = 86  # the children's --error-exitcode
 SANITIZE_TIMEOUT_S = 900  # the longest a child may take
 SANITIZE_UNSUPPORTED = "Device not supported"  # compute-sanitizer's message where it cannot attach to the card
-SANITIZE_KERNELS = (("cst_collapse", "collapse"), ("cst_fused", "fused_quantize"), ("cst_stft", "stft_power"))
+SANITIZE_KERNELS = (("cst_collapse", "collapse"), ("cst_fused", "fused_quantize"), ("cst_stft", "stft_power"),
+                    ("cst_percentile", "percentile_quantize"))
 SANITIZE_CONTROLS = (("short_output", "memcheck"), ("unwritten_input", "initcheck"))
 GUARD_BYTES = 1 << 16  # the poisoned zone before and after every buffer of a guarded launch
 GUARD_FILLS = (0xFF, 0x5A, 0xFF)  # each guarded launch's poison byte, run by run: NaN/-1/255, then 0x5A..
@@ -1705,7 +1873,7 @@ def sanitize_cases(first: int, count: int) -> list[tuple[str, dict]]:
 
 def case_kernels(case: dict) -> list[str]:
     """What a [sanitize] case launches: the lane kernels, stft_power, or a render of panels."""
-    return ((["collapse", "fused_quantize"] if case.get("cubes") is not None else [])
+    return ((["collapse", "fused_quantize", "percentile_quantize"] if case.get("cubes") is not None else [])
             + (["stft_power"] if case.get("stft") is not None else [])
             + (["render_panels"] if case.get("panels") is not None else []))
 
@@ -1730,6 +1898,15 @@ def sanitize_launch(K, case: dict, kernel: str, device, place=None) -> list:
     lanes = (x["cubes"], x["u_idx"], x["masks"], x["t_valid"])
     if kernel == "collapse":
         return [K.collapse_lanes(*lanes)]
+    if kernel == "percentile_quantize":  # the collapse route: the select on, odd lanes' bounds over the file
+        from configurable_spectrograms_torch.ops.spectrogram import RenderSpec
+
+        L, E = case["e_valid"].shape
+        q = K.percentile_quantize_lanes(
+            K.collapse_lanes(*lanes), place(np.tile(np.geomspace(10.0, 3e4, E, dtype=np.float32), (L, 1))),
+            x["e_valid"], x["t_valid"], x["t_start"], x["t_count"], place(np.full((L, 2), np.nan, np.float32)),
+            RenderSpec(8, 8, "linear", case["z_scale"]), zb_full_time=place(np.arange(L) % 2 == 1))
+        return [q[k] for k in ("idx", "kept_pos", "n_kept", "flip", "empty", "y0", "y1", "vmin", "vmax")]
     f = K.fused_quantize_lanes(*lanes[:3], x["e_valid"], x["t_valid"], x["t_start"], x["t_count"], x["z_bounds"],
                                z_scale=case["z_scale"])
     return [f["idx"], f["vmin"], f["col_all_nan"]]
@@ -2001,7 +2178,7 @@ def run_sanitize(device, first: int, count: int, tools=SANITIZE_TOOLS) -> dict:
             continue
         if r["rc"] not in (0, SANITIZE_EXIT) or not r["child"]:
             failures.append(f"the {tool} child crashed (rc {r['rc']}): see {r['log']}")
-        lines = dict.fromkeys(("collapse", "fused_quantize", "stft_power", "render_panels"))
+        lines = dict.fromkeys(("collapse", "fused_quantize", "stft_power", "percentile_quantize", "render_panels"))
         lines.update(r["child"].get("kernels", {}))
         if any(k == "other" for _, k, _ in r["records"]):
             lines["other"] = None
@@ -2364,7 +2541,7 @@ def run_suite(device: str | None = None, timeout: float = SUITE_TIMEOUT_S) -> di
         seconds=f"{got['seconds']:.2f}")
     require(not unexplained, f"[suite] {len(unexplained)} JAX test(s) classed PASS failed on the card: "
                              f"{unexplained} (the child's output ends:\n{got['tail'][-3000:]})")
-    require(launches.get("collapse", 0) > 0 and launches.get("fused_quantize", 0) > 0,
+    require(min(launches.get(k, 0) for k in RENDER_KERNELS) > 0,
             f"[suite] the device renders launched {launches}: not through the kernels")
     h.assert_isolated(got)
     return {"seconds": got["seconds"], "launches": launches, "failed": failed, "assertions": run_assertions(h, device)}
@@ -2384,7 +2561,7 @@ def run_assertions(h, device: str | None) -> dict:
         seconds=f"{got['seconds']:.2f}")
     require(not unexplained, f"[suite] {len(unexplained)} test(s) of {h.ASSERTION_FILES} failed on the card: "
                              f"{unexplained} (the child's output ends:\n{got['tail'][-3000:]})")
-    require(all(launches.get(k, 0) > 0 for k in ("collapse", "fused_quantize", "stft_power")),
+    require(all(launches.get(k, 0) > 0 for k in (*RENDER_KERNELS, "stft_power")),
             f"[suite] the assertion child launched {launches}: not every kernel met its JAX test's reference")
     h.assert_isolated(got)
     return {"seconds": got["seconds"], "launches": launches, "failed": failed, **counts}
@@ -2443,7 +2620,8 @@ def run_generic(records: dict, mapping: dict, tmp: str) -> None:
         batch_ok=sum(st == "ok" for _, st in res), pngs=n_png, batch_s=f"{t_batch:.2f}",
         launches=json.dumps(launches))
     require(dict(res) == {i: "ok" for i in items} and n_png == len(items), f"generic batch: {res}")
-    require(launches["collapse"] > 0, "the generic CLIs launched no collapse kernel")
+    require(min(launches["collapse"], launches["percentile_quantize"]) > 0,
+            f"the generic CLIs launched no collapse-route kernel: {launches}")
     add_launches(records, launches)
 
 
@@ -2602,8 +2780,8 @@ def run_batch(records: dict, mapping: dict, root: str, cusp: str, tmp: str) -> d
         require(not flagged, f"flagship CLI ({name}) recorded errors or timeouts: {flagged}")
         require(run["extrema"] is not None, f"flagship CLI ({name}) wrote no extrema JSON")
         if backend == "device":
-            require(min(launches["collapse"], launches["fused_quantize"]) > 0,
-                    f"the flagship batch ({name}) did not launch both kernels: {launches}")
+            require(min(launches[k] for k in RENDER_KERNELS) > 0,
+                    f"the flagship batch ({name}) did not launch every render kernel: {launches}")
         if name == "device":
             require(tele["cube_hits"] > 0, f"the flagship batch never reused a resident cube: {tele}")
             add_launches(records, launches)
@@ -2665,7 +2843,8 @@ def run_batch(records: dict, mapping: dict, root: str, cusp: str, tmp: str) -> d
         launches=json.dumps(launches))
     say("batch", cli="single_plot_FAST_spectrograms", mode="date", run="no",
         why="--date downloads from CDA Web; the card's machine has no network")
-    require(launches["collapse"] > 0, f"the single FAST CLI launched no collapse kernel: {launches}")
+    require(min(launches["collapse"], launches["percentile_quantize"]) > 0,
+            f"the single FAST CLI launched no collapse-route kernel: {launches}")
     add_launches(records, launches)
     os.environ.pop("CST_RENDER_BACKEND", None)
     return runs
@@ -2911,7 +3090,8 @@ def run_gui(records: dict, mapping: dict, root: str, cusp: str, tmp: str, device
         say_action("a_single_day", a, orbit=big, pixels_equal_single_cli=same)
         require(a["status"] == "Finished.", f"[gui] (a) Single Day ended {a['status']!r}")
         require(a["child"]["device"] == want_device, f"[gui] (a) child ran on {a['child']['device']}")
-        require(a["child"]["launches"]["collapse"] > 0, f"[gui] (a) the child launched no collapse: {a['child']}")
+        require(min(a["child"]["launches"][k] for k in ("collapse", "percentile_quantize")) > 0,
+                f"[gui] (a) the child launched no collapse-route kernel: {a['child']}")
         require(same, "[gui] (a) the Single Day PNG differs from the single FAST CLI's")
         add_launches(records, a["child"]["launches"])
 
@@ -2940,8 +3120,8 @@ def run_gui(records: dict, mapping: dict, root: str, cusp: str, tmp: str, device
                    extrema_keys=len(extrema), raw_pngs=len(raw), raw_pixels_equal=raw_equal)
         require(b["status"] == "Finished.", f"[gui] (b) Plot ended {b['status']!r}")
         require(b["child"]["device"] == want_device, f"[gui] (b) child ran on {b['child']['device']}")
-        require(min(b["child"]["launches"]["collapse"], b["child"]["launches"]["fused_quantize"]) > 0,
-                f"[gui] (b) the child did not launch both kernels: {b['child']['launches']}")
+        require(min(b["child"]["launches"][k] for k in RENDER_KERNELS) > 0,
+                f"[gui] (b) the child did not launch every render kernel: {b['child']['launches']}")
         require(got == want, f"[gui] (b) wrote another file list than [batch]'s log_log subset ({len(got)} vs {len(want)})")
         # A fresh log_log pre-pass scans in linear space and keeps what [batch]'s first combo
         # (linear_linear) scanned; [batch] derived its log_log entries from those (JAX semantics).
@@ -3209,7 +3389,7 @@ def run_parallel(records: dict, mapping: dict, root: str, cusp: str, tmp: str, u
     require(run["extrema"] == ungrouped["extrema"], "(b) the one-rank flagship's extrema JSON differs")
     require(dispatch.LAST_DISPATCH["device"] == extrema_ops.LAST_DISPATCH["device"] == str(device),
             f"(b) the one-rank flagship did not run on {device}")
-    require(min(launches["collapse"], launches["fused_quantize"]) > 0, f"(b) a kernel never launched: {launches}")
+    require(min(launches[k] for k in RENDER_KERNELS) > 0, f"(b) a kernel never launched: {launches}")
     add_launches(records, launches)
 
     # (c) Two Gloo ranks on the one card, the flagship at one worker on the three small orbits.
@@ -3233,7 +3413,8 @@ def run_parallel(records: dict, mapping: dict, root: str, cusp: str, tmp: str, u
                 f"(c) rank {r} ran on {out['render_device']} / {out['extrema_device']}")
         # At one worker the raw job of an orbit writes the given-named files too and the given job finds
         # them (docs/parity.md:42-46), so only the collapse kernel renders.
-        require(out["launches"]["collapse"] > 0, f"(c) rank {r}: the collapse kernel never launched: {out['launches']}")
+        require(min(out["launches"][k] for k in ("collapse", "percentile_quantize")) > 0,
+                f"(c) rank {r}: a collapse-route kernel never launched: {out['launches']}")
         add_launches(records, out["launches"])
         union.update(run["pngs"])
     require(sorted(union) == sorted(one["pngs"]), "(c) the two ranks wrote another file list than one process")
@@ -3369,8 +3550,8 @@ def run_backend_switches(rounds: int, small=SHAPES[1], big=SHAPES[0]) -> dict:
                     cube_hits=tele["cube_hits"], dispatches=tele["dispatches"], launches=json.dumps(K.LAUNCHES))
                 require(run["rc"] == 0 and all(x["status"] == "ok" for x in run["results"]),
                         f"flagship CLI ({name}, round {r}) failed: rc {run['rc']}")
-                require(min(K.LAUNCHES["collapse"], K.LAUNCHES["fused_quantize"]) > 0,
-                        f"the flagship batch ({name}) did not launch both kernels: {K.LAUNCHES}")
+                require(min(K.LAUNCHES[k] for k in RENDER_KERNELS) > 0,
+                        f"the flagship batch ({name}) did not launch every render kernel: {K.LAUNCHES}")
                 if first is None:
                     first = run
                 require(sorted(run["pngs"]) == sorted(first["pngs"]), f"{name}, round {r}: another file list")
@@ -3453,8 +3634,8 @@ def run_audio(records: dict, samples: np.ndarray) -> None:
             cli_audio.audio_spectrogram_dataset = real
         launches = dict(K.LAUNCHES)
         say("audio", launches=json.dumps(launches))
-        require(launches["stft_power"] > 0 and launches["collapse"] > 0,
-                f"the audio path did not launch stft_power and collapse: {launches}")
+        require(min(launches[k] for k in ("stft_power", "collapse", "percentile_quantize")) > 0,
+                f"the audio path did not launch stft_power, collapse and percentile_quantize: {launches}")
         add_launches(records, launches)
 
         # Where one audio figure's time goes (the pallas raw dataset, 150 DPI as the CLI saves).
@@ -4058,8 +4239,8 @@ def run_scale(records: dict, n_orbits: int, tmp: str, device: str = "cuda", shap
     require(flagged == fault_orbits, f"[scale] error keys name orbits {sorted(flagged)}, the faults are in "
                                      f"{sorted(fault_orbits)}")
     if on_card:
-        require(min(launches.get("collapse", 0), launches.get("fused_quantize", 0)) > 0,
-                f"[scale] run 2 did not launch both kernels: {launches}")
+        require(min(launches.get(k, 0) for k in RENDER_KERNELS) > 0,
+                f"[scale] run 2 did not launch every render kernel: {launches}")
         add_launches(records, launches)
     # Run 3: the resume of a finished archive writes and launches nothing.
     state_before = {k: v for k, v in tree_listing(cwd).items() if not k.startswith("FAST_data") and not k.endswith(".log")}

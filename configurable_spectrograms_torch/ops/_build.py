@@ -44,10 +44,12 @@ BUILD_INFO: dict[str, object] = {"seconds": 0.0, "log": "", "path": ""}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "cst_collapse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cst_fused_quantize": [_P] * 8 + [_I] + [_P] * 7 + [_I] * 5 + [_P],
     "cst_stft_power": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
+    "cst_percentile_quantize": [_P] * 9 + [_F, _F, _I, _I] + [_P] * 3 + [_I] * 3 + [_P],
 }
 
 

@@ -23,6 +23,16 @@ Counterparts of ``configurable_spectrograms_tpu/ops/pallas_kernels.py``:
   to :func:`stft_power_plain`: on the card it is held to the plain
   version's tolerance, and its error against a float64 product to within
   4x the plain version's.
+* :func:`percentile_quantize_lanes` replaces no Pallas kernel: it is the
+  tail of the collapse route (the render buckets without finite explicit
+  bounds), which the JAX package left to XLA and the port ran as ~400 eager
+  torch calls of :func:`..ops.spectrogram.quantize_matrix` a bucket: the
+  masks, the percentile bounds by an exact radix select, the normalisation,
+  the colormap index and the kept-column order, in one launch over the
+  collapsed matrices (see ``csrc/percentile_quantize.cu``).  Its plain
+  version is ``quantize_matrix`` itself; vmin, vmax, the kept columns and
+  the extent are bit-identical to it, an index one bin apart only where a
+  cell sits on a bin boundary.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 launches its CUDA kernel for tensors on a CUDA device -- or raises.  A
@@ -42,10 +52,11 @@ from __future__ import annotations
 
 import threading
 
+import numpy as np
 import torch
 
 #: Launch counts of the CUDA kernels (one per wrapper call that launched).
-LAUNCHES: dict[str, int] = {"collapse": 0, "fused_quantize": 0, "stft_power": 0}
+LAUNCHES: dict[str, int] = {"collapse": 0, "fused_quantize": 0, "stft_power": 0, "percentile_quantize": 0}
 _LAUNCHES_LOCK = threading.Lock()  # the batch driver launches from several threads
 
 _BIG = 3.0e38  # the fill of the safe-floor minimum, as in ops/spectrogram._analyze_matrix
@@ -388,3 +399,95 @@ def stft_power(frames: torch.Tensor, cos_b: torch.Tensor, sin_b: torch.Tensor) -
     _raise_on(err, "cst_stft_power")
     _count_launch("stft_power")
     return out
+
+
+#: Per-lane words after kept_pos and the column flags (``PQ_SCALARS`` in
+#: ``csrc/percentile_quantize.cu``): y0, y1, vmin, vmax (float bits), n_kept,
+#: n_ok, the four order statistics (float bits), two unused.
+PQ_SCALARS = 12
+
+
+def percentile_quantize_buffers(L: int, T: int, E: int, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's outputs, three allocations and no fills: ``idx`` (L, T, E) uint8, ``words`` (L, 2E + 12)
+    int32 (kept_pos, the column flags it clears itself, the scalars) and ``flags`` (L, 2) uint8 (flip, empty)."""
+    return (_empty((L, T, E), torch.uint8, device), _empty((L, 2 * E + PQ_SCALARS), torch.int32, device),
+            _empty((L, 2), torch.uint8, device))
+
+
+def percentile_quantize_args(args: tuple, z_scale: str, low_percentile: float, high_percentile: float,
+                             select: bool, idx: torch.Tensor, words: torch.Tensor, flags: torch.Tensor) -> tuple:
+    """The arguments of ``cst_percentile_quantize`` on checked inputs, into
+    :func:`percentile_quantize_buffers`' tensors, on the current stream of the matrix's device.
+
+    *args*: matrix, energy, e_valid, zb_e_valid, t_valid, t_start, t_count,
+    z_bounds, zb_full_time (or None).  The percentiles go over as
+    ``q / 100`` rounded once in float32, as ``ops.spectrogram`` rounds them.
+    """
+    matrix, zb_full = args[0], args[8]
+    L, T, E = matrix.shape
+    ptrs = _cuda_args(*(a for a in args if a is not None), idx, words, flags)
+    if zb_full is None:
+        ptrs.insert(8, None)
+    q_lo, q_hi = (float(np.float32(q) / np.float32(100.0)) for q in (low_percentile, high_percentile))
+    return (*ptrs[:9], q_lo, q_hi, 1 if z_scale == "log" else 0, 1 if select else 0, *ptrs[9:], L, T, E,
+            torch.cuda.current_stream(matrix.device).cuda_stream)
+
+
+def percentile_quantize_launch(args: tuple, z_scale: str, low_percentile: float, high_percentile: float,
+                               select: bool, idx: torch.Tensor, words: torch.Tensor, flags: torch.Tensor) -> None:
+    """Run ``cst_percentile_quantize`` (:func:`percentile_quantize_args`' arguments) under the matrix's device.
+    Counts no launch: :func:`percentile_quantize_lanes` does."""
+    from configurable_spectrograms_torch.ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(args[0].device):
+        err = lib.cst_percentile_quantize(*percentile_quantize_args(args, z_scale, low_percentile, high_percentile,
+                                                                    select, idx, words, flags))
+    _raise_on(err, "cst_percentile_quantize")
+
+
+def percentile_quantize_lanes(matrix, energy, e_valid, t_valid, t_start, t_count, z_bounds, spec,
+                              zb_e_valid=None, zb_full_time=None, skip_percentile: bool = False) -> dict:
+    """Bounds, normalisation, colormap index and kept columns of collapsed (L, T, E) matrices.
+
+    The arguments and the result are those of
+    :func:`..ops.spectrogram.quantize_matrix`, its plain version, which
+    CPU tensors take: ``matrix`` (L, T, E) float32 with rows at or past
+    ``t_valid`` NaN; ``energy`` (L, E) float32; ``e_valid`` and
+    ``zb_e_valid`` (L, E) bool; ``t_valid``, ``t_start``, ``t_count`` (L,)
+    int32; ``z_bounds`` (L, 2) float32, NaN meaning "percentile bound";
+    ``zb_full_time`` (L,) bool; *spec* a ``RenderSpec`` (its ``z_scale`` and
+    percentiles).  ``skip_percentile`` takes both bounds as given.  On a
+    card the result's per-lane tensors are views of the kernel's buffers.
+    """
+    if matrix.dim() != 3 or matrix.dtype != torch.float32:
+        raise ValueError(f"matrix must be (L, T, E) float32, got {tuple(matrix.shape)} {matrix.dtype}")
+    L, T, E = matrix.shape
+    if spec.z_scale not in ("log", "linear"):
+        raise ValueError(f"z_scale must be 'log' or 'linear', got {spec.z_scale!r}")
+    for name, t, dtype, shape in (("energy", energy, torch.float32, (L, E)), ("e_valid", e_valid, torch.bool, (L, E)),
+                                  ("zb_e_valid", zb_e_valid, torch.bool, (L, E)),
+                                  ("t_valid", t_valid, torch.int32, (L,)), ("t_start", t_start, torch.int32, (L,)),
+                                  ("t_count", t_count, torch.int32, (L,)),
+                                  ("z_bounds", z_bounds, torch.float32, (L, 2)),
+                                  ("zb_full_time", zb_full_time, torch.bool, (L,))):
+        if t is not None and (t.dtype != dtype or t.shape != shape):
+            raise ValueError(f"{name} must be {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+    if matrix.device.type == "cpu":
+        from configurable_spectrograms_torch.ops.spectrogram import quantize_matrix
+
+        return quantize_matrix(matrix, energy, e_valid, t_valid, t_start, t_count, z_bounds, spec,
+                               zb_e_valid=zb_e_valid, zb_full_time=zb_full_time, skip_percentile=skip_percentile)
+    if matrix.device.type != "cuda":
+        raise ValueError(f"percentile_quantize_lanes runs on cpu or cuda tensors, got {matrix.device}")
+    idx, words, flags = percentile_quantize_buffers(L, T, E, matrix.device)
+    if L:
+        args = (matrix, energy, e_valid, e_valid if zb_e_valid is None else zb_e_valid, t_valid, t_start, t_count,
+                z_bounds, zb_full_time)
+        percentile_quantize_launch(args, spec.z_scale, spec.low_percentile, spec.high_percentile,
+                                   not skip_percentile, idx, words, flags)
+        _count_launch("percentile_quantize")
+    y0, y1, vmin, vmax = words[:, 2 * E:2 * E + 4].view(torch.float32).unbind(1)
+    flip, empty = flags.view(torch.bool).unbind(1)
+    return {"idx": idx, "kept_pos": words[:, :E], "n_kept": words[:, 2 * E + 4], "flip": flip, "y0": y0, "y1": y1,
+            "vmin": vmin, "vmax": vmax, "empty": empty}

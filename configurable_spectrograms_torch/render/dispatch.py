@@ -9,7 +9,10 @@ to pixels (:func:`..render.tile.resample_indices`).
 Routing: a bucket whose panels carry explicit finite bounds with
 vmax > vmin runs the fused kernel (:func:`..ops.kernels.fused_quantize_lanes`),
 both z scales.  Every other bucket runs the collapse kernel
-(:func:`..ops.kernels.collapse_lanes`) and then the eager-torch
+(:func:`..ops.kernels.collapse_lanes`) and then the percentile-quantize
+kernel (:func:`..ops.kernels.percentile_quantize_lanes`: bounds, index and
+kept columns in one launch, with the percentile select switched off where
+the bounds are explicit but degenerate); on the CPU that is the eager
 :func:`..ops.spectrogram.quantize_matrix`.  ``Ep`` pads to a multiple of 8
 on both routes (the kernels mask the column tail themselves).  A bucket
 reads its cubes from the device-resident cube cache
@@ -36,12 +39,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from configurable_spectrograms_torch.ops.kernels import collapse_lanes, fused_quantize_lanes
-from configurable_spectrograms_torch.ops.spectrogram import (
-    RenderSpec,
-    _kept_energy_order,
-    quantize_matrix,
+from configurable_spectrograms_torch.ops.kernels import (
+    collapse_lanes,
+    fused_quantize_lanes,
+    percentile_quantize_lanes,
 )
+from configurable_spectrograms_torch.ops.spectrogram import RenderSpec, _kept_energy_order
 from configurable_spectrograms_torch.render.backend import render_backend
 from configurable_spectrograms_torch.render.device_cache import count, stack_cubes
 from configurable_spectrograms_torch.render.device_cache import upload_telemetry  # noqa: F401  (the JAX module's name)
@@ -154,8 +157,8 @@ def _enqueue_group(panels: list[PanelData], idxs: list[int], key: tuple, tile_h:
     else:
         m = collapse_lanes(cubes, u_t, masks_t, tv_t)
         spec = RenderSpec(8, 8, y_scale, z_scale, lo_pct, hi_pct)
-        q = quantize_matrix(m, en_t, ev_t, tv_t, ts_t, tc_t, zb_t, spec,
-                            zb_e_valid=zbe_t, zb_full_time=zbf_t, skip_percentile=explicit)
+        q = percentile_quantize_lanes(m, en_t, ev_t, tv_t, ts_t, tc_t, zb_t, spec,
+                                      zb_e_valid=zbe_t, zb_full_time=zbf_t, skip_percentile=explicit)
     idx = q["idx"]
     if gather_w:
         idx = idx[torch.arange(n, device=device).view(n, 1), tm_t]

@@ -983,6 +983,7 @@ def test_the_assertion_child_runs_isolated_and_reports_its_launches(tmp_path):
         "test_torch_jax_assertions.py::test_collapse_cube_matches_nansum", "test_torch_jax_assertions.py::test_frame_signal",
         "test_torch_suite_counterparts.py::test_masked_nanpercentile_empty_and_infinities"], result["nodes"]
     assert set(result["nodes"].values()) == {"passed"}
-    assert result["report"]["launches"] == {"collapse": 0, "fused_quantize": 0, "stft_power": 0}  # the CPU launches none
+    assert result["report"]["launches"] == {"collapse": 0, "fused_quantize": 0, "stft_power": 0,
+                                            "percentile_quantize": 0}  # the CPU launches none
     assert_isolated(result)
     assert any(proc and proc[0]["kind"] == "start" for proc in result["processes"])

@@ -333,7 +333,8 @@ def test_every_kernel_launch_runs_under_its_tensors_device():
             guarded |= {id(n) for n in ast.walk(node)}
         if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) and node.func.attr.startswith("cst_"):
             launches.append(node)
-    assert sorted(n.func.attr for n in launches) == ["cst_collapse", "cst_fused_quantize", "cst_stft_power"]
+    assert sorted(n.func.attr for n in launches) == ["cst_collapse", "cst_fused_quantize", "cst_percentile_quantize",
+                                                      "cst_stft_power"]
     assert all(id(n) in guarded for n in launches), [n.func.attr for n in launches if id(n) not in guarded]
 
 

@@ -292,7 +292,8 @@ def test_run_sanitize_passes_when_every_tool_is_clean(phase, capsys):
     phase.setattr(chip_smoke, "run_sanitizer_child", _stub_child(
         {**_controls_caught(), ("memcheck", "cases"): CLEAN, ("racecheck", "cases"): CLEAN}))
     got = chip_smoke.run_sanitize(CPU, 0, 2)
-    assert got["compute_sanitizer"] and set(got["guard"]) == {"collapse", "fused_quantize", "stft_power"}
+    assert got["compute_sanitizer"] and set(got["guard"]) == {"collapse", "fused_quantize", "stft_power",
+                                                              "percentile_quantize"}
     out = capsys.readouterr().out
     assert "[sanitize] tool=memcheck kernel=collapse cases=2 launches=2 errors=0" in out
     assert "[sanitize] control=short_output tool=guard errors=1" in out
@@ -347,4 +348,5 @@ def test_the_child_reports_what_it_launched(monkeypatch, tmp_path):
     assert chip_smoke.sanitizer_child({"seeds": [0, 2], "report": str(report)}) == 0
     got = json.loads(report.read_text())["kernels"]
     n = 2 + len(chip_smoke.SWEEP_PINNED_SEEDS)
-    assert {k: v["cases"] for k, v in got.items()} == {"collapse": n, "fused_quantize": n, "stft_power": n}
+    assert {k: v["cases"] for k, v in got.items()} == {"collapse": n, "fused_quantize": n, "stft_power": n,
+                                                       "percentile_quantize": n}
