@@ -142,9 +142,14 @@ def mel_spectrogram(
     method: str = "fft",
 ) -> torch.Tensor:
     """Mel spectrogram: (N,) -> (frames, n_mels); the projection is ``torch.matmul``."""
+    from configurable_spectrograms_torch.utils.timing import active_stage
+
     mag = stft_magnitude(x, frame_length=frame_length, hop_length=hop_length, power=power, method=method)
-    weights, _ = mel_filterbank(n_mels, frame_length, float(sample_rate))
-    return mag @ torch.from_numpy(weights).to(mag.device)
+    with active_stage("mel_filterbank"):
+        weights, _ = mel_filterbank(n_mels, frame_length, float(sample_rate))
+        weights_t = torch.from_numpy(weights).to(mag.device)
+    with active_stage("mel_project"):
+        return mag @ weights_t
 
 
 def host_stft_magnitude(
@@ -180,11 +185,13 @@ def audio_spectrogram_dataset(
     CUDA error raises (no fallback to the host).
     """
     from configurable_spectrograms_torch.render.backend import render_backend
+    from configurable_spectrograms_torch.utils.timing import active_stage
 
     _check_method(method)
     weights = None
     if n_mels is not None:
-        weights, centers = mel_filterbank(n_mels, frame_length, float(sample_rate))
+        with active_stage("mel_filterbank"):
+            weights, centers = mel_filterbank(n_mels, frame_length, float(sample_rate))
         freqs = centers
     else:
         freqs = np.linspace(0.0, sample_rate / 2.0, frame_length // 2 + 1).astype(np.float32)
@@ -201,7 +208,8 @@ def audio_spectrogram_dataset(
             spec = mel_spectrogram(x, sample_rate, frame_length, hop_length, n_mels, power, method)
         else:
             spec = stft_magnitude(x, frame_length, hop_length, power, method)
-        spec_np = spec.cpu().numpy()
+        with active_stage("spectrogram_readback"):
+            spec_np = spec.cpu().numpy()
     frames = spec_np.shape[0]
     times = (np.arange(frames) * hop_length + frame_length / 2) / float(sample_rate)
     return {

@@ -24,6 +24,12 @@ per call, never per lane or element):
 * ``composite``, ``png_encode``: a figure's compositing and encode
   (``render.figure``)
 * ``wav_load``: the audio CLI's WAV read and mix (``cli.audio``)
+* ``mel_filterbank``: a build of the mel weights (``ops.stft``: once in
+  ``audio_spectrogram_dataset`` for the centres, once more in
+  ``mel_spectrogram`` with the weights' upload, which waits for the STFT
+  queued before it); ``mel_project``: the projection's enqueue;
+  ``spectrogram_readback``: the device spectrogram's copy to the host,
+  which waits for the STFT and the projection
 """
 
 from __future__ import annotations
