@@ -1,12 +1,14 @@
 // Minimal fast PNG encoder for RGB8 images.
 //
 // The port's own copy of the repository's native/fastpng.cpp, built by
-// configurable_spectrograms_torch/render/fastpng.py.  Two changes: the
+// configurable_spectrograms_torch/render/fastpng.py.  Three changes: the
 // run/LZ encoder of mostly-white canvases (namespace rlez) runs in every
 // build, not only with libdeflate -- it needs a library only for adler32,
 // which zlib has too, so a zlib build writes the same bytes for such a
-// canvas as a libdeflate build; and FASTPNG_ZLIB_ABI builds on a host that
-// has neither libdeflate's nor zlib's header.
+// canvas as a libdeflate build; FASTPNG_ZLIB_ABI builds on a host that has
+// neither libdeflate's nor zlib's header; and one canvas's run/LZ deflate is
+// split into row stripes that a process-wide pool of native threads encodes
+// in parallel (namespace stripes, below).
 //
 // The figure pipeline's largest host cost is PNG encoding: PIL runs
 // adaptive per-scanline filtering plus zlib level-N on a single core.
@@ -17,12 +19,49 @@
 // batch-driver worker threads overlap encode with device readback.
 //
 // PNG container: 8-byte signature, IHDR, one IDAT (zlib stream), IEND.
+//
+// Row stripes.  The canvas is cut at 16-row feed-block boundaries into K
+// stripes, K a function of the canvas's shape alone (one per 128 KiB of
+// filtered scanlines, at least 1, at most MAX_STRIPES), so a canvas gives
+// the same bytes on every host and under any load.  Each stripe is
+// Up-filtered (its first row against the canvas row above it), adler-summed
+// and fed to its own fixed-Huffman encoder in the same fused 16-row loop as
+// one stripe.  Its encoder first parses the 32 KB of rows above it without
+// emitting, so its match table holds about what one encoder's would there.
+// The canvas stays one fixed-Huffman block: the first stripe writes the
+// zlib and block headers, the last the end-of-block code, and the caller
+// joins the stripes' bits in order as they finish and combines their
+// adler-32 and CRC-32 values (each stripe's thread sums its own); so the
+// IDAT is one zlib stream within a few hundred bytes of one stripe's
+// (smaller on some canvases).  K = 1 (under 256 KiB filtered) is the serial
+// encoder's stream byte for byte.
+//
+// The pool starts at the first striped encode with min(cores / 2 - 1,
+// MAX_STRIPES - 1) native helpers, which never touch the interpreter and
+// leave the other half of the cores to the threads that do.  The caller
+// queues stripes 1..K-1, encodes stripe 0, takes any stripe no helper has
+// started, and joins the finished ones in between; so when other callers'
+// stripes keep the helpers busy, an encode runs at about the serial cost
+// instead of queueing behind them.  The pool records its pid: a forked
+// child builds a pool of its own instead of waiting on threads it does not
+// have.  Each thread keeps one grow-only buffer the size of a stripe and the
+// 32 KB above it (the filtered rows it encodes), not of a canvas.
 
+#include <atomic>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <deque>
+#include <mutex>
+#include <system_error>
+#include <thread>
 #include <vector>
+
+#include <sched.h>
+#include <time.h>
+#include <unistd.h>
 
 #ifdef __SSSE3__
 #include <tmmintrin.h>
@@ -34,7 +73,7 @@
 #ifdef FASTPNG_USE_LIBDEFLATE
 #include <libdeflate.h>
 #elif defined(FASTPNG_ZLIB_ABI)
-// No zlib header on the build host: declare the three entry points this
+// No zlib header on the build host: declare the four entry points this
 // file calls, as zlib's stable ABI (libz.so.1) defines them, and link the
 // libz.so.1 that Python's own zlib module loads.
 extern "C" {
@@ -45,6 +84,7 @@ typedef unsigned char Bytef;
 int compress2(Bytef* dest, uLongf* destLen, const Bytef* source, uLong sourceLen, int level);
 uLong compressBound(uLong sourceLen);
 uLong adler32(uLong adler, const Bytef* buf, uInt len);
+uLong crc32(uLong crc, const Bytef* buf, uInt len);
 }
 #define Z_OK 0
 #else
@@ -52,25 +92,6 @@ uLong adler32(uLong adler, const Bytef* buf, uInt len);
 #endif
 
 namespace {
-
-uint32_t crc_table_once[256];
-bool crc_ready = false;
-
-void init_crc() {
-    if (crc_ready) return;
-    for (uint32_t n = 0; n < 256; ++n) {
-        uint32_t c = n;
-        for (int k = 0; k < 8; ++k) c = (c & 1) ? 0xEDB88320u ^ (c >> 1) : c >> 1;
-        crc_table_once[n] = c;
-    }
-    crc_ready = true;
-}
-
-uint32_t crc32_of(const uint8_t* a, size_t n, uint32_t crc = 0xFFFFFFFFu) {
-    init_crc();
-    for (size_t i = 0; i < n; ++i) crc = crc_table_once[(crc ^ a[i]) & 0xFF] ^ (crc >> 8);
-    return crc;
-}
 
 // Adler-32 of the zlib stream, from whichever library the build links.
 uint32_t adler32_of(uint32_t adler, const uint8_t* p, size_t n) {
@@ -84,11 +105,28 @@ uint32_t adler32_of(uint32_t adler, const uint8_t* p, size_t n) {
 #endif
 }
 
-void put_be32(std::vector<uint8_t>& v, uint32_t x) {
-    v.push_back(uint8_t(x >> 24));
-    v.push_back(uint8_t(x >> 16));
-    v.push_back(uint8_t(x >> 8));
-    v.push_back(uint8_t(x));
+// Adler-32 of A then B from adler(A), adler(B) and B's length: zlib's
+// adler32_combine, written here because libdeflate has no combine (and the
+// zlib-abi variant declares only the four symbols above).
+uint32_t adler32_combine_of(uint32_t adler1, uint32_t adler2, size_t len2) {
+    constexpr uint32_t BASE = 65521u;
+    const uint32_t rem = uint32_t(len2 % BASE);
+    uint32_t sum1 = adler1 & 0xFFFFu;
+    uint32_t sum2 = uint32_t((uint64_t(rem) * sum1) % BASE);
+    sum1 += (adler2 & 0xFFFFu) + BASE - 1;
+    sum2 += ((adler1 >> 16) & 0xFFFFu) + ((adler2 >> 16) & 0xFFFFu) + BASE - rem;
+    if (sum1 >= BASE) sum1 -= BASE;
+    if (sum1 >= BASE) sum1 -= BASE;
+    if (sum2 >= (BASE << 1)) sum2 -= (BASE << 1);
+    if (sum2 >= BASE) sum2 -= BASE;
+    return sum1 | (sum2 << 16);
+}
+
+void put_be32(uint8_t* p, uint32_t x) {
+    p[0] = uint8_t(x >> 24);
+    p[1] = uint8_t(x >> 16);
+    p[2] = uint8_t(x >> 8);
+    p[3] = uint8_t(x);
 }
 
 // Repack one RGBA row to RGB.  SSSE3 shuffles 16 input bytes (4 px) to 12
@@ -137,16 +175,16 @@ inline void filter_row_rgba(const uint8_t* cur, const uint8_t* prev, uint8_t* ou
     }
 }
 
-// Up-filter canvas rows [y0, y1) into `raw` at their final offsets
-// (filter byte + stride bytes per row).  Reads straight from the caller's
-// RGB/RGBA pixels -- no intermediate repacked row buffers.
-void filter_rows(const uint8_t* px, int32_t w, int32_t h, int32_t channels,
-                 int32_t y0, int32_t y1, uint8_t* raw) {
-    (void)h;
+// Up-filter canvas rows [y0, y1) into `raw`, which holds rows from y_base
+// on (filter byte + stride bytes per row).  Reads straight from the
+// caller's RGB/RGBA pixels -- no intermediate repacked row buffers; a row
+// is filtered against the canvas row above it wherever `raw` starts.
+void filter_rows(const uint8_t* px, int32_t w, int32_t channels,
+                 int32_t y0, int32_t y1, int32_t y_base, uint8_t* raw) {
     const size_t stride = size_t(w) * 3;
     const size_t in_stride = size_t(w) * size_t(channels);
     for (int32_t y = y0; y < y1; ++y) {
-        uint8_t* dst = raw + size_t(y) * (stride + 1);
+        uint8_t* dst = raw + size_t(y - y_base) * (stride + 1);
         const uint8_t* cur = px + size_t(y) * in_stride;
         if (y == 0) {
             *dst++ = 0;  // None
@@ -164,18 +202,117 @@ void filter_rows(const uint8_t* px, int32_t w, int32_t h, int32_t channels,
     }
 }
 
-void chunk(std::vector<uint8_t>& out, const char type[4], const uint8_t* data, size_t n) {
-    put_be32(out, uint32_t(n));
-    size_t start = out.size();
-    out.insert(out.end(), type, type + 4);
-    out.insert(out.end(), data, data + n);
+// CRC-32 of the bytes after `crc`'s (start from 0), from whichever library
+// the build links: a PNG's IDAT is as long as its zlib stream, and a
+// byte-at-a-time table took longer than the striped deflate itself.
+uint32_t crc32_update(uint32_t crc, const uint8_t* p, size_t n) {
 #ifdef FASTPNG_USE_LIBDEFLATE
-    uint32_t crc = libdeflate_crc32(0, out.data() + start, out.size() - start);
+    return libdeflate_crc32(crc, p, n);
 #else
-    uint32_t crc = crc32_of(out.data() + start, out.size() - start) ^ 0xFFFFFFFFu;
+    constexpr size_t STEP = size_t(1) << 30;  // zlib's length is a uInt
+    uLong c = crc;
+    for (size_t i = 0; i < n; i += STEP) c = crc32(c, p + i, uInt(n - i < STEP ? n - i : STEP));
+    return uint32_t(c);
 #endif
-    put_be32(out, crc);
 }
+
+// CRC-32 over bit strings, read LSB first as deflate packs them and as the
+// PNG CRC reads bytes: crc(A then B) = x^|B| crc(A) + crc(B) mod P for any
+// bit lengths (the initial and final inversions cancel), so each stripe's
+// thread sums its own bits and the caller only combines (zlib's
+// crc32_combine, in bits; libdeflate has none).
+constexpr uint32_t CRC_POLY = 0xEDB88320u;  // reflected
+
+uint32_t crc_multmodp(uint32_t a, uint32_t b) {  // a * b mod P; a != 0
+    uint32_t m = 1u << 31, p = 0;
+    for (;;) {
+        if (a & m) {
+            p ^= b;
+            if ((a & (m - 1)) == 0) break;
+        }
+        m >>= 1;
+        b = b & 1 ? (b >> 1) ^ CRC_POLY : b >> 1;
+    }
+    return p;
+}
+
+// CRC-32 of the first `bits` bits of p.
+uint32_t crc32_bits(const uint8_t* p, size_t bits) {
+    uint32_t c = crc32_update(0, p, bits / 8);
+    if (bits & 7) {
+        uint32_t raw = ~c;
+        const uint8_t last = p[bits / 8];
+        for (unsigned i = 0; i < (bits & 7); ++i) {
+            raw ^= (last >> i) & 1u;
+            raw = raw & 1 ? (raw >> 1) ^ CRC_POLY : raw >> 1;
+        }
+        c = ~raw;
+    }
+    return c;
+}
+
+// CRC-32 of A then B from crc(A), crc(B) and B's length in bits.
+uint32_t crc32_cat(uint32_t crc_a, uint32_t crc_b, uint64_t bits_b) {
+    uint32_t xn = 1u << 31, x2k = 1u << 30;  // x^0, and x^(2^k) from x^1
+    for (; bits_b; bits_b >>= 1) {
+        if (bits_b & 1) xn = crc_multmodp(x2k, xn);
+        x2k = crc_multmodp(x2k, x2k);
+    }
+    return crc_multmodp(xn, crc_a) ^ crc_b;
+}
+
+const uint8_t IHDR[4] = {'I', 'H', 'D', 'R'};
+const uint8_t IDAT[4] = {'I', 'D', 'A', 'T'};
+const uint8_t IEND[4] = {'I', 'E', 'N', 'D'};
+
+// A PNG file: the signature and IHDR go out when it opens, the IDAT and
+// IEND when the stream is done.  The striped encoder opens it while its
+// helpers encode, and writes the IDAT in one piece: on the 8-core host of
+// an H100 machine an open took ~0.5 ms, and a write a stripe ~1 ms more
+// than one write.
+class PngFile {
+public:
+    void open(const char* path, int32_t w, int32_t h) {
+        f_ = std::fopen(path, "wb");
+        if (f_ == nullptr) return;
+        static const uint8_t sig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
+        uint8_t ihdr[13];
+        put_be32(ihdr, uint32_t(w));
+        put_be32(ihdr + 4, uint32_t(h));
+        ihdr[8] = 8;   // bit depth
+        ihdr[9] = 2;   // color type: truecolor RGB
+        ihdr[10] = 0;  // compression
+        ihdr[11] = 0;  // filter method
+        ihdr[12] = 0;  // no interlace
+        ok_ = std::fwrite(sig, 1, 8, f_) == 8;
+        chunk(IHDR, ihdr, 13, crc32_update(crc32_update(0, IHDR, 4), ihdr, 13));
+    }
+    bool opened() const { return f_ != nullptr; }
+    // Writes the IDAT (`crc`: the CRC-32 of its type and data), IEND, and
+    // closes; true when every write succeeded.
+    bool close(const std::vector<uint8_t>& idat, uint32_t crc) {
+        chunk(IDAT, idat.data(), idat.size(), crc);
+        chunk(IEND, nullptr, 0, crc32_update(0, IEND, 4));
+        ok_ = (std::fclose(f_) == 0) && ok_;
+        f_ = nullptr;
+        return ok_;
+    }
+    ~PngFile() {
+        if (f_ != nullptr) std::fclose(f_);
+    }
+
+private:
+    void chunk(const uint8_t type[4], const uint8_t* p, size_t n, uint32_t crc) {
+        uint8_t head[8], tail[4];
+        put_be32(head, uint32_t(n));
+        std::memcpy(head + 4, type, 4);
+        put_be32(tail, crc);
+        ok_ = ok_ && std::fwrite(head, 1, 8, f_) == 8 && (n == 0 || std::fwrite(p, 1, n, f_) == n) &&
+              std::fwrite(tail, 1, 4, f_) == 4;
+    }
+    FILE* f_ = nullptr;
+    bool ok_ = false;
+};
 
 // ---------------------------------------------------------------------------
 // Specialized deflate encoder for filtered figure canvases.
@@ -252,7 +389,8 @@ inline const Tables& tables() {
 // Pointer-based LSB-first bit writer.  `put` dumps the accumulator with one
 // unaligned 8-byte store and keeps 0-7 residual bits -- no per-byte
 // push_back branches.  Callers must `reserve` headroom before a run of
-// puts; `finish` trims the vector to the exact byte length.
+// puts; `finish` trims the vector to the exact byte length and returns the
+// number of valid bits in it (the last byte's unused high bits are zero).
 struct BitWriter {
     std::vector<uint8_t>& out;
     size_t pos;
@@ -271,13 +409,15 @@ struct BitWriter {
         acc >>= (nbits & ~7);
         nbits &= 7;
     }
-    void finish() {
+    size_t finish() {
+        const size_t bits = pos * 8 + size_t(nbits);
         if (nbits > 0) {
             out[pos++] = uint8_t(acc);
             acc = 0;
             nbits = 0;
         }
         out.resize(pos);
+        return bits;
     }
 };
 
@@ -290,19 +430,40 @@ struct BitWriter {
 // a feed boundary (it re-forms as distance-1 matches in the next call),
 // costing a handful of literals per ~230 KB block -- unmeasurable ratio
 // impact.
+//
+// A canvas is one fixed-Huffman block however many row stripes encode it:
+// the `first` stripe's encoder writes the zlib header and the block header,
+// the `last` one the end-of-block code, and the caller joins the stripes'
+// bits.  So a stripe boundary costs no framing bits, only what its fresh
+// parse state loses, which `prime` takes back.
 class FixedEnc {
 public:
-    FixedEnc(std::vector<uint8_t>& out, const uint8_t* base)
-        : bw_(push_hdr(out)), in_(base) {
+    FixedEnc(std::vector<uint8_t>& out, const uint8_t* base, bool first, bool last)
+        : bw_(first ? push_hdr(out) : out), in_(base), last_(last) {
         head_store().assign(size_t(1) << HBITS, -1);
         bw_.reserve(1024);
-        bw_.put(1, 1);  // BFINAL
-        bw_.put(1, 2);  // BTYPE=01 fixed Huffman
+        if (first) {
+            bw_.put(1, 1);  // BFINAL
+            bw_.put(1, 2);  // BTYPE=01 fixed Huffman
+        }
     }
-    void feed(size_t upto);
-    void finish() {
-        bw_.put(tables().lit_code[256], tables().lit_bits[256]);  // end of block
-        bw_.finish();
+    // Take bytes [0, upto) as already encoded (the rows above a stripe):
+    // parse their last 32 KB without emitting, so the match table holds
+    // about what one encoder's would at `upto`.  Filling the table with
+    // every position instead measured up to 0.4% larger files: collisions
+    // in the 11-bit table evict the entries a parse keeps.
+    void prime(size_t upto) {
+        i_ = upto > WINDOW ? upto - WINDOW : 0;
+        scan<false>(upto);
+    }
+    void feed(size_t upto) { scan<true>(upto); }
+    // Ends the block if `last`; returns the number of valid bits written.
+    size_t finish() {
+        if (last_) {
+            bw_.reserve(16);
+            bw_.put(tables().lit_code[256], tables().lit_bits[256]);  // end of block
+        }
+        return bw_.finish();
     }
 
 private:
@@ -325,20 +486,36 @@ private:
     // compress phase for +3% file size.  (A paired two-literal bit-write
     // variant re-measured 0% here, confirming the earlier rejection.)
     static constexpr int HBITS = 11;
+    static constexpr size_t WINDOW = 32768;  // deflate's farthest back-reference
+    static uint32_t hash4(const uint8_t* p) {
+        uint32_t v;
+        std::memcpy(&v, p, 4);
+        return (v * 2654435761u) >> (32 - HBITS);
+    }
+    template <bool EMIT>
+    void scan(size_t upto);
+
     BitWriter bw_;
     const uint8_t* in_;
+    const bool last_;
     size_t i_ = 0;
 };
 
-void FixedEnc::feed(size_t upto) {
+// Parse [i_, upto): with EMIT the symbols are written; without, only the
+// match table advances (prime).
+template <bool EMIT>
+void FixedEnc::scan(size_t upto) {
     const Tables& T = tables();
     BitWriter& bw = bw_;
     std::vector<uint8_t>& out = bw_.out;
     const uint8_t* in = in_;
     const size_t n = upto;
 
-    auto emit_lit = [&](uint8_t b) { bw.put(T.lit_code[b], T.lit_bits[b]); };
+    auto emit_lit = [&](uint8_t b) {
+        if (EMIT) bw.put(T.lit_code[b], T.lit_bits[b]);
+    };
     auto emit_match = [&](size_t L, size_t D) {
+        if (!EMIT) return;
         unsigned s = T.len_sym[L];
         bw.put(T.lit_code[s], T.lit_bits[s]);
         if (T.len_ebits[L]) bw.put(uint32_t(L - T.len_ebase[L]), T.len_ebits[L]);
@@ -349,11 +526,6 @@ void FixedEnc::feed(size_t upto) {
 
     constexpr size_t MIN_RUN = 16;
     int64_t* head = head_store().data();
-    auto hash4 = [](const uint8_t* p) {
-        uint32_t v;
-        std::memcpy(&v, p, 4);
-        return (v * 2654435761u) >> (32 - HBITS);
-    };
 
     // (A probe-skipping literal-burst variant -- lengthening literal runs
     // after consecutive failed probes, paired two-literal bit-writes --
@@ -364,7 +536,7 @@ void FixedEnc::feed(size_t upto) {
     while (i < n) {
         // Headroom for the worst burst this iteration can emit (a literal
         // is <=2 bytes; a full run segment stays far under this).
-        if (bw.pos + 2048 > out.size()) bw.reserve(1 << 16);
+        if (EMIT && bw.pos + 2048 > out.size()) bw.reserve(1 << 16);
         // Run fast path: byte repeated >= MIN_RUN times becomes dist-1 matches.
         if (i + MIN_RUN <= n && in[i] == in[i + 1]) {
             uint8_t b = in[i];
@@ -390,7 +562,7 @@ void FixedEnc::feed(size_t upto) {
             while (j < n && in[j] == b) ++j;
             size_t r = j - i;
             if (r >= MIN_RUN) {
-                bw.reserve((r / 258 + 2) * 4 + 64);  // one giant run can emit many matches
+                if (EMIT) bw.reserve((r / 258 + 2) * 4 + 64);  // one giant run can emit many matches
                 if (i + 4 <= n) head[hash4(in + i)] = int64_t(i);
                 emit_lit(b);
                 ++i;
@@ -409,7 +581,7 @@ void FixedEnc::feed(size_t upto) {
             uint32_t hs = hash4(in + i);
             int64_t cand = head[hs];
             head[hs] = int64_t(i);
-            if (cand >= 0 && i - size_t(cand) <= 32768) {
+            if (cand >= 0 && i - size_t(cand) <= WINDOW) {
                 uint32_t a, c;
                 std::memcpy(&a, in + i, 4);
                 std::memcpy(&c, in + size_t(cand), 4);
@@ -490,37 +662,284 @@ double sampled_zero_frac_rows(const uint8_t* px, int32_t w, int32_t h, int32_t c
 
 }  // namespace rlez
 
+// ---------------------------------------------------------------------------
+// Row stripes of one canvas and the pool of native threads that encodes
+// them (see the header comment).
+// ---------------------------------------------------------------------------
+namespace stripes {
+
+constexpr int32_t BLOCK_ROWS = 16;                 // rows per fused filter/adler/encode step
+constexpr int32_t MAX_STRIPES = 16;
+constexpr size_t STRIPE_BYTES = size_t(128) << 10;  // filtered bytes per stripe
+
+// The stripe count of a w x h canvas: its shape alone decides it.
+int32_t count_for(int32_t w, int32_t h) {
+    const size_t filtered = size_t(h) * (size_t(w) * 3 + 1);
+    const size_t blocks = (size_t(h) + BLOCK_ROWS - 1) / BLOCK_ROWS;
+    size_t k = filtered / STRIPE_BYTES;
+    if (k > size_t(MAX_STRIPES)) k = MAX_STRIPES;
+    if (k > blocks) k = blocks;
+    return k < 1 ? 1 : int32_t(k);
+}
+
+struct Stripe {
+    int32_t y0 = 0, y1 = 0;             // canvas rows [y0, y1)
+    std::vector<uint8_t>* out = nullptr;  // its deflate bits (the caller's buffer)
+    size_t bits = 0;                    // how many of them are valid
+    uint32_t crc = 0;                   // their CRC-32 (crc32_bits)
+    uint32_t adler = 1;
+    size_t filtered = 0;                // its filtered bytes (adler-combine length)
+    double t0 = 0.0, t1 = 0.0;          // when it started and ended (monotonic())
+    bool done = false;                  // under the pool's lock
+};
+
+struct Job {
+    const uint8_t* px;
+    int32_t w, channels, n;
+    Stripe s[MAX_STRIPES];
+    int32_t next = 1;  // the next stripe to claim, under the pool's lock
+};
+
+// Rows of history a stripe after the first primes its encoder with: the
+// canvas rows just above it that hold deflate's 32 KB window (filtered
+// again by this stripe, which is cheaper than waiting for its neighbour).
+int32_t history_rows(size_t row_bytes, int32_t y0) {
+    const size_t rows = (size_t(32768) + row_bytes - 1) / row_bytes;
+    return rows < size_t(y0) ? int32_t(rows) : y0;
+}
+
+// Append the first `src_bits` bits of `src` to `dst`, which holds
+// `dst_bits` (LSB-first, as deflate packs them; unused high bits zero).
+// Eight bytes a step: a byte loop took ~1 ms for an audio figure's stream.
+void append_bits(std::vector<uint8_t>& dst, size_t dst_bits, const std::vector<uint8_t>& src, size_t src_bits) {
+    const size_t src_bytes = (src_bits + 7) / 8;
+    const unsigned r = unsigned(dst_bits & 7);
+    if (r == 0) {
+        dst.insert(dst.end(), src.begin(), src.begin() + ptrdiff_t(src_bytes));
+        return;
+    }
+    // dst's last byte is partial: shift src up by r bits into it, carrying
+    // each word's top r bits into the next.
+    const size_t at = dst.size() - 1;
+    dst.resize(at + src_bytes + 1 + 8);  // 8 bytes of slack for the word stores
+    uint8_t* d = dst.data() + at;
+    uint64_t carry = d[0];
+    size_t j = 0;
+    for (; j + 8 <= src_bytes; j += 8) {
+        uint64_t w;
+        std::memcpy(&w, src.data() + j, 8);
+        const uint64_t v = (w << r) | carry;
+        std::memcpy(d + j, &v, 8);
+        carry = w >> (64 - r);
+    }
+    for (; j < src_bytes; ++j) {
+        d[j] = uint8_t((unsigned(src[j]) << r) | unsigned(carry));
+        carry = unsigned(src[j]) >> (8 - r);
+    }
+    d[src_bytes] = uint8_t(carry);
+    dst.resize((dst_bits + src_bits + 7) / 8);
+}
+
+// CLOCK_MONOTONIC in seconds: the clock of Python's time.perf_counter on
+// Linux, so a stripe's interval lines up with the stage timer's.
+double monotonic() {
+    timespec ts;
+    clock_gettime(CLOCK_MONOTONIC, &ts);
+    return double(ts.tv_sec) + 1e-9 * double(ts.tv_nsec);
+}
+
+void encode(Job& job, int32_t k) {
+    Stripe& s = job.s[k];
+    s.t0 = monotonic();
+    const size_t row_bytes = size_t(job.w) * 3 + 1;
+    const int32_t base = s.y0 - history_rows(row_bytes, s.y0);  // first row in `raw`
+    // Grow-only and per thread: a fresh allocation per call page-faults its
+    // way through the filter loop (measured 3x the steady-state encode time
+    // on first touch).
+    static thread_local std::vector<uint8_t> raw;
+    const size_t need = size_t(s.y1 - base) * row_bytes;
+    if (raw.size() < need) raw.resize(need);
+    s.out->clear();
+    filter_rows(job.px, job.w, job.channels, base, s.y0, base, raw.data());
+    size_t done = size_t(s.y0 - base) * row_bytes;
+    rlez::FixedEnc enc(*s.out, raw.data(), k == 0, k == job.n - 1);
+    enc.prime(done);
+    // Fused single pass: Up-filter, adler32, and the fixed-Huffman encoder
+    // advance together in 16-row blocks, so the filtered bytes are
+    // consumed while still cache-resident (the split pipeline walked the
+    // canvas through DRAM three times; fusing measured ~30% off).
+    uint32_t adler = 1;
+    for (int32_t y = s.y0; y < s.y1; y += BLOCK_ROWS) {
+        const int32_t ye = y + BLOCK_ROWS < s.y1 ? y + BLOCK_ROWS : s.y1;
+        filter_rows(job.px, job.w, job.channels, y, ye, base, raw.data());
+        const size_t upto = size_t(ye - base) * row_bytes;
+        adler = adler32_of(adler, raw.data() + done, upto - done);
+        enc.feed(upto);
+        done = upto;
+    }
+    s.bits = enc.finish();
+    s.crc = crc32_bits(s.out->data(), s.bits);
+    s.adler = adler;
+    s.filtered = size_t(s.y1 - s.y0) * row_bytes;
+    s.t1 = monotonic();
+}
+
+int32_t cores() {
+#ifdef __linux__
+    cpu_set_t set;
+    if (sched_getaffinity(0, sizeof(set), &set) == 0) return int32_t(CPU_COUNT(&set));
+#endif
+    return int32_t(std::thread::hardware_concurrency());
+}
+
+class Pool {
+public:
+    explicit Pool(pid_t pid) : pid(pid) {}
+    const pid_t pid;
+
+    // An encode takes at most half the cores: its caller and cores/2 - 1
+    // helpers.  With cores - 1 helpers a 4-worker FAST pass composited 65%
+    // slower and its render dispatcher took 2.4x as long, as the helpers
+    // preempted the threads that hold the interpreter's lock; with half,
+    // compositing kept its time.
+    void start() {
+        int32_t helpers = cores() / 2 - 1;
+        if (helpers > MAX_STRIPES - 1) helpers = MAX_STRIPES - 1;
+        for (int32_t i = 0; i < helpers; ++i) {
+            try {
+                std::thread([this] { help(); }).detach();
+            } catch (const std::system_error&) {
+                break;  // fewer helpers: callers encode what no helper takes
+            }
+        }
+    }
+
+    // Queue stripes 1..n-1 of `job` for the helpers.
+    void submit(Job& job) {
+        {
+            std::lock_guard<std::mutex> lk(mu_);
+            queue_.push_back(&job);
+        }
+        work_.notify_all();
+    }
+
+    // Encode stripe 0 and any stripe of `job` no helper has started, and
+    // hand every stripe to `emit` on this thread in order, as soon as it and
+    // those before it are done; returns after the last.
+    template <class Emit>
+    void work(Job& job, Emit&& emit) {
+        encode(job, 0);
+        emit(0);
+        int32_t emitted = 1;
+        std::unique_lock<std::mutex> lk(mu_);
+        job.s[0].done = true;
+        while (emitted < job.n) {
+            const int32_t k = claim(job);
+            if (k >= 0) {
+                lk.unlock();
+                encode(job, k);
+                lk.lock();
+                job.s[k].done = true;
+            } else if (!job.s[emitted].done) {
+                finished_.wait(lk, [&] { return job.s[emitted].done; });
+            }
+            while (emitted < job.n && job.s[emitted].done) {
+                lk.unlock();
+                emit(emitted++);
+                lk.lock();
+            }
+        }
+    }
+
+private:
+    // The next unstarted stripe of `job`, or -1; under mu_.  Whoever takes
+    // the last one takes the job off the queue, so a queued job always has
+    // a stripe left; a helper touches a job only until it marks its stripe
+    // done, which the caller waits for.
+    int32_t claim(Job& job) {
+        if (job.next >= job.n) return -1;
+        const int32_t k = job.next++;
+        if (job.next == job.n) {
+            for (auto it = queue_.begin(); it != queue_.end(); ++it) {
+                if (*it == &job) { queue_.erase(it); break; }
+            }
+        }
+        return k;
+    }
+
+    void help() {
+        std::unique_lock<std::mutex> lk(mu_);
+        for (;;) {
+            work_.wait(lk, [&] { return !queue_.empty(); });
+            Job& job = *queue_.front();
+            const int32_t k = claim(job);
+            lk.unlock();
+            encode(job, k);
+            lk.lock();
+            job.s[k].done = true;
+            finished_.notify_all();
+        }
+    }
+
+    std::mutex mu_;
+    std::condition_variable work_, finished_;
+    std::deque<Job*> queue_;
+};
+
+// The process's pool, started at the first striped encode.  A forked child
+// inherits the pointer but not the threads (and maybe a lock held by one of
+// them): it leaves the parent's pool alone and starts its own.
+std::atomic<Pool*> the_pool{nullptr};
+
+Pool& pool() {
+    const pid_t me = getpid();
+    Pool* p = the_pool.load(std::memory_order_acquire);
+    while (p == nullptr || p->pid != me) {
+        Pool* fresh = new Pool(me);
+        if (the_pool.compare_exchange_strong(p, fresh, std::memory_order_acq_rel)) {
+            fresh->start();
+            return *fresh;
+        }
+        delete fresh;  // another thread installed one: p now holds it
+    }
+    return *p;
+}
+
+}  // namespace stripes
+
 }  // namespace
 
-extern "C" int fastpng_write_v2(
+// The number of row stripes the run/LZ encoder cuts a w x h canvas into.
+extern "C" int32_t fastpng_stripe_count(int32_t w, int32_t h) {
+    if (w <= 0 || h <= 0) return 0;
+    return stripes::count_for(w, h);
+}
+
+// Write a PNG.  `stripes` 0 cuts the canvas by its shape (every caller but
+// the tests, which pass 1 for the one-stripe stream); `stripe_times`, when
+// not null, receives each stripe's start and end on CLOCK_MONOTONIC, in
+// seconds (room for two for each of fastpng_stripe_count's, or `stripes`'s,
+// stripes).  Returns the number of stripes the run/LZ encoder used, 0 where
+// the library's deflate encoded the canvas, or a negative error.
+extern "C" int32_t fastpng_write_v3(
     const uint8_t* px,    // h*w*channels bytes, row-major
     int32_t w,
     int32_t h,
     int32_t channels,     // 3 (RGB) or 4 (RGBA; alpha dropped -- output is RGB)
     int32_t zlevel,
-    const char* path
+    const char* path,
+    int32_t stripes,
+    double* stripe_times
 ) {
     if (w <= 0 || h <= 0 || px == nullptr || path == nullptr) return -1;
     if (channels != 3 && channels != 4) return -1;
-    const size_t stride = size_t(w) * 3;           // output scanline bytes
-    const size_t in_stride = size_t(w) * size_t(channels);
+    if (stripes < 0) return -1;
 
     // Filtered scanlines: filter byte 2 ("Up") per row; row 0 uses "None".
     // RGBA input filters straight from the caller's pixels (subtract +
     // 4->3 shuffle fused), so a shared RGBA canvas encodes with zero
     // repack buffers.
     //
-    // The buffer is thread_local and grow-only: a fresh ~35 MB allocation
-    // per call page-faults its way through the filter loop (measured 3x
-    // the steady-state encode time on first touch), while reuse keeps the
-    // pages warm across a batch.  Cost: ~35 MB retained per encoding
-    // thread.
-    (void)in_stride;
-    static thread_local std::vector<uint8_t> raw;
-    raw.resize(size_t(h) * (stride + 1));
-
-    static thread_local std::vector<uint8_t> zdata;
-    zdata.clear();
     // Mostly-white canvases (the product's figures) take the specialized
     // run/LZ fixed-Huffman encoder (~4x faster); noise-like data routes to
     // the library's deflate (libdeflate, else zlib) where dynamic Huffman is
@@ -538,32 +957,72 @@ extern "C" int fastpng_write_v2(
     // builds to libdeflate unconditionally (overrides FASTPNG_ENCODER=rle).
     use_rle = false;
 #endif
+    // The IDAT's data (the zlib stream) and its CRC-32 from the chunk type on.
+    static thread_local std::vector<uint8_t> zdata;
+    zdata.clear();
+    uint32_t crc = crc32_update(0, IDAT, 4);
+    PngFile file;
+    int32_t used = 0;
     if (use_rle) {
-        // Fused single pass: Up-filter, adler32, and the fixed-Huffman
-        // encoder advance together in ~16-row blocks, so the filtered
-        // bytes are consumed while still cache-resident.  The split
-        // pipeline (full filter pass, then adler, then compress) walked
-        // the ~35 MB canvas through DRAM three times; fusing removes two
-        // of those walks (measured ~30% off the whole-canvas encode).
-        rlez::FixedEnc enc(zdata, raw.data());
-        uint32_t adler = 1;
-        constexpr int32_t BLOCK_ROWS = 16;
-        size_t done = 0;
-        for (int32_t y = 0; y < h; y += BLOCK_ROWS) {
-            int32_t ye = y + BLOCK_ROWS < h ? y + BLOCK_ROWS : h;
-            filter_rows(px, w, h, channels, y, ye, raw.data());
-            size_t upto = size_t(ye) * (stride + 1);
-            adler = adler32_of(adler, raw.data() + done, upto - done);
-            enc.feed(upto);
-            done = upto;
+        // Stripe k covers feed blocks [k*B/K, (k+1)*B/K): the same 16-row
+        // blocks as one stripe, cut between them.
+        stripes::Job job;
+        job.px = px;
+        job.w = w;
+        job.channels = channels;
+        const int32_t blocks = (h + stripes::BLOCK_ROWS - 1) / stripes::BLOCK_ROWS;
+        int32_t n = stripes == 0 ? stripes::count_for(w, h) : stripes;
+        if (n > stripes::MAX_STRIPES) n = stripes::MAX_STRIPES;
+        if (n > blocks) n = blocks;
+        job.n = n;
+        // The caller's stripe outputs: grow-only like the filter buffers.
+        static thread_local std::vector<uint8_t> outs[stripes::MAX_STRIPES];
+        for (int32_t k = 0; k < n; ++k) {
+            const int32_t b0 = int32_t(int64_t(blocks) * k / n), b1 = int32_t(int64_t(blocks) * (k + 1) / n);
+            job.s[k].y0 = b0 * stripes::BLOCK_ROWS;
+            job.s[k].y1 = b1 * stripes::BLOCK_ROWS < h ? b1 * stripes::BLOCK_ROWS : h;
+            job.s[k].out = &outs[k];
         }
-        enc.finish();
-        zdata.push_back(uint8_t(adler >> 24));
-        zdata.push_back(uint8_t(adler >> 16));
-        zdata.push_back(uint8_t(adler >> 8));
-        zdata.push_back(uint8_t(adler));
+        // Join stripe k's bits to the stream's and fold in its CRC and adler.
+        size_t bits = 0;
+        uint32_t adler = 1;
+        auto emit = [&](int32_t k) {
+            const stripes::Stripe& s = job.s[k];
+            stripes::append_bits(zdata, bits, *s.out, s.bits);
+            bits += s.bits;
+            crc = crc32_cat(crc, s.crc, s.bits);
+            adler = k == 0 ? s.adler : adler32_combine_of(adler, s.adler, s.filtered);
+        };
+        stripes::Pool* pool = n > 1 ? &stripes::pool() : nullptr;
+        if (pool != nullptr) pool->submit(job);
+        file.open(path, w, h);
+        if (pool != nullptr) {
+            pool->work(job, emit);
+        } else {
+            stripes::encode(job, 0);
+            emit(0);
+        }
+        if (bits & 7) {  // the last byte's zero padding
+            static const uint8_t zero = 0;
+            crc = crc32_cat(crc, crc32_bits(&zero, 8 - (bits & 7)), 8 - (bits & 7));
+        }
+        uint8_t adler_be[4];
+        put_be32(adler_be, adler);
+        zdata.insert(zdata.end(), adler_be, adler_be + 4);
+        crc = crc32_update(crc, adler_be, 4);
+        if (stripe_times != nullptr) {
+            for (int32_t k = 0; k < n; ++k) {
+                stripe_times[2 * k] = job.s[k].t0;
+                stripe_times[2 * k + 1] = job.s[k].t1;
+            }
+        }
+        used = n;
     } else {
-        filter_rows(px, w, h, channels, 0, h, raw.data());
+        // The library's deflate takes the whole filtered canvas at once.
+        file.open(path, w, h);
+        static thread_local std::vector<uint8_t> raw;
+        raw.resize(size_t(h) * (size_t(w) * 3 + 1));
+        filter_rows(px, w, channels, 0, h, 0, raw.data());
 #ifdef FASTPNG_USE_LIBDEFLATE
         int lvl = zlevel < 1 ? 1 : (zlevel > 12 ? 12 : zlevel);
         libdeflate_compressor* comp = libdeflate_alloc_compressor(lvl);
@@ -583,38 +1042,10 @@ extern "C" int fastpng_write_v2(
         }
         zdata.resize(bound);
 #endif
+        crc = crc32_update(crc, zdata.data(), zdata.size());
     }
-
-    std::vector<uint8_t> out;
-    out.reserve(zdata.size() + 128);
-    static const uint8_t sig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
-    out.insert(out.end(), sig, sig + 8);
-
-    uint8_t ihdr[13];
-    ihdr[0] = uint8_t(uint32_t(w) >> 24); ihdr[1] = uint8_t(uint32_t(w) >> 16);
-    ihdr[2] = uint8_t(uint32_t(w) >> 8);  ihdr[3] = uint8_t(w);
-    ihdr[4] = uint8_t(uint32_t(h) >> 24); ihdr[5] = uint8_t(uint32_t(h) >> 16);
-    ihdr[6] = uint8_t(uint32_t(h) >> 8);  ihdr[7] = uint8_t(h);
-    ihdr[8] = 8;   // bit depth
-    ihdr[9] = 2;   // color type: truecolor RGB
-    ihdr[10] = 0;  // compression
-    ihdr[11] = 0;  // filter method
-    ihdr[12] = 0;  // no interlace
-    chunk(out, "IHDR", ihdr, 13);
-    chunk(out, "IDAT", zdata.data(), zdata.size());
-    chunk(out, "IEND", nullptr, 0);
-
-    FILE* f = std::fopen(path, "wb");
-    if (!f) return -3;
-    size_t written = std::fwrite(out.data(), 1, out.size(), f);
-    std::fclose(f);
-    return written == out.size() ? 0 : -4;
-}
-
-extern "C" int fastpng_write_rgb(
-    const uint8_t* rgb, int32_t w, int32_t h, int32_t zlevel, const char* path
-) {
-    return fastpng_write_v2(rgb, w, h, 3, zlevel, path);
+    if (!file.opened()) return -3;
+    return file.close(zdata, crc) ? used : -4;
 }
 
 // ---------------------------------------------------------------------------

@@ -9,6 +9,31 @@ figure canvas, and alpha-blends cached text tiles.  Each call releases
 the interpreter lock for its whole run (ctypes does), so the batch
 driver's worker threads encode in parallel.
 
+One figure's run/LZ deflate is itself split into row stripes, cut at
+16-row blocks, one per 128 KiB of filtered scanlines, at most 16.  The
+canvas's shape alone sets the count, so its bytes are the same on every
+host and under any load.  The stripes are parsed apart (each first parses
+the 32 KB of rows above it, so it finds the matches one parse would) and
+their bits joined into the one fixed-Huffman block of the one IDAT, with
+their adler-32 and CRC-32 values combined: the file is within a few
+hundred bytes of one stripe's.  A canvas under 256 KiB filtered is one
+stripe, the serial encoder's bytes.
+
+A process-wide pool of min(cores / 2 - 1, 15) native helper threads,
+started at the first striped encode, encodes the stripes: half the cores,
+with the caller, so the interpreter's threads (a batch's compositing
+workers, the render dispatcher) keep the other half.  The calling thread
+queues stripes 1..K-1, encodes stripe 0 and any stripe no helper has
+started, and joins the finished ones in between; so under other workers'
+encodes a call falls back toward the serial cost instead of queueing.  A forked child starts a pool
+of its own.  Each thread keeps one grow-only buffer the size of a stripe
+(~2.2 MB for a 4800 x 2400 canvas), not of a canvas.  With a stage timer
+set (``utils.timing.ACTIVE``) each encode records one ``png_stripe`` stage
+a stripe: the seconds its thread took, and its interval on
+``time.perf_counter``'s clock (the encoder reads ``CLOCK_MONOTONIC``,
+which is that clock on Linux) with no thread, as a helper is no Python
+thread.
+
 The library is compiled with ``g++`` at first use into
 ``ops._build.cache_dir()``, the kernel library's directory
 (``CST_NATIVE_CACHE_DIR``, else ``build/cst_torch/`` in a source
@@ -41,6 +66,8 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from configurable_spectrograms_torch.utils import timing
 
 SRC = Path(__file__).resolve().parent.parent / "native" / "fastpng.cpp"
 
@@ -114,7 +141,7 @@ def _compile(lib: Path) -> str:
     tmp = f"{lib}.tmp.{os.getpid()}"
     log = []
     for variant, extra in _variants():
-        cmd = ["g++", "-O3", "-fPIC", "-shared", "-o", tmp, str(SRC), *extra]
+        cmd = ["g++", "-O3", "-fPIC", "-shared", "-pthread", "-o", tmp, str(SRC), *extra]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True, timeout=180)
         except (OSError, subprocess.TimeoutExpired) as exc:
@@ -134,13 +161,17 @@ def _compile(lib: Path) -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I32, I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-    lib.fastpng_write_v2.argtypes = [ctypes.c_char_p, I32, I32, I32, I32, ctypes.c_char_p]
+    # px, w, h, channels, zlevel, path, stripes (0 = by shape), each stripe's (start, end) (or None)
+    lib.fastpng_write_v3.argtypes = [ctypes.c_char_p, I32, I32, I32, I32, ctypes.c_char_p, I32,
+                                     ctypes.POINTER(ctypes.c_double)]
+    lib.fastpng_stripe_count.argtypes = [I32, I32]
     # idx, idx_row_stride, t_idx, x_ok, sel, starts, counts, n_runs, lut, out, out_row_stride, oh, ow
     lib.fastpng_blit_runs.argtypes = [P, I64, P, P, P, P, P, I32, P, P, I64, I32, I32]
     # canvas, canvas_stride, H, W, tile, tw, th, x0, y0
     lib.fastpng_blend_tile.argtypes = [P, I64, I32, I32, P, I32, I32, I32, I32]
     lib.fastpng_variant.argtypes = []
-    for fn in (lib.fastpng_write_v2, lib.fastpng_blit_runs, lib.fastpng_blend_tile, lib.fastpng_variant):
+    for fn in (lib.fastpng_write_v3, lib.fastpng_stripe_count, lib.fastpng_blit_runs, lib.fastpng_blend_tile,
+               lib.fastpng_variant):
         fn.restype = ctypes.c_int32
 
 
@@ -175,10 +206,16 @@ def write_png_rgb(array: np.ndarray, path: str, compress_level: int = 3) -> None
     if a.ndim != 3 or a.shape[2] not in (3, 4) or a.shape[0] <= 0 or a.shape[1] <= 0:
         raise ValueError(f"write_png_rgb takes a non-empty (H, W, 3|4) array, got {a.shape}")
     h, w = a.shape[:2]
-    rc = library().fastpng_write_v2(a.ctypes.data_as(ctypes.c_char_p), w, h, a.shape[2], compress_level,
-                                    os.fsencode(path))
-    if rc != 0:
+    lib = library()
+    timer = timing.ACTIVE
+    times = (ctypes.c_double * (2 * lib.fastpng_stripe_count(w, h)))() if timer is not None else None
+    rc = lib.fastpng_write_v3(a.ctypes.data_as(ctypes.c_char_p), w, h, a.shape[2], compress_level,
+                              os.fsencode(path), 0, times)
+    if rc < 0:
         raise OSError(f"native PNG encoder failed ({rc}) writing {path}")
+    if timer is not None:
+        for k in range(rc):
+            timer.add("png_stripe", times[2 * k + 1] - times[2 * k], t_end=times[2 * k + 1])
 
 
 def blit_runs(idx: np.ndarray, t_idx: np.ndarray, x_ok: np.ndarray, sel: np.ndarray, starts: np.ndarray,

@@ -22,7 +22,9 @@ per call, never per lane or element):
   (``render.dispatch``); ``device_readback``: its wait for the copy back
   (``render.drain``)
 * ``composite``, ``png_encode``: a figure's compositing and encode
-  (``render.figure``)
+  (``render.figure``); ``png_stripe``: one row stripe of that encode, run
+  on the encoder's native threads and added with its interval by
+  ``render.fastpng.write_png_rgb``
 * ``wav_load``: the audio CLI's WAV read and mix (``cli.audio``)
 * ``mel_filterbank``: a build of the mel weights (``ops.stft``: once in
   ``audio_spectrogram_dataset`` for the centres, once more in
