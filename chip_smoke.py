@@ -158,9 +158,8 @@ Phases, one line each, in order:
                tree: the same file list, the same extrema JSON, every
                raw-named PNG identical or differing only in pixels one
                colormap bin apart.  Then on the device backend again with
-               the render back end off (CST_RENDER_COALESCE=0,
-               CST_DEVICE_CUBE_CACHE=0, CST_HOST_COMPUTE_GATE=0): the same
-               file list and extrema JSON, its panels/s beside the default
+               the cube cache off (CST_DEVICE_CUBE_CACHE=0): the same file
+               list and extrema JSON, its panels/s beside the default
                run's.  Each batch line carries its upload telemetry; the
                default run must reuse a resident cube.  Then the single FAST CLI on the device
                backend: --cdf-file (the 8192x64x128 ees file), --data-folder
@@ -289,12 +288,10 @@ Phases, one line each, in order:
     python3 chip_smoke.py --backend-switches N
 
 builds the kernels, makes the e2e phase's archive and runs the flagship
-batch on the device backend N times in turn with the render back end on,
-with each of its switches off alone (CST_DEVICE_CUBE_CACHE=0,
-CST_RENDER_COALESCE=0, CST_HOST_COMPUTE_GATE=0) and with all three off
-(the order rotates each round): one [switches] line per run, the same
-file list and extrema JSON in every run, then the median panels/s of
-each setting.  It prints no ok line.
+batch on the device backend N times in turn with the cube cache on and
+off (CST_DEVICE_CUBE_CACHE=0; the order rotates each round): one
+[switches] line per run, the same file list and extrema JSON in every
+run, then the median panels/s of each setting.  It prints no ok line.
 
     python3 chip_smoke.py --scale-orbits N
 
@@ -2250,7 +2247,6 @@ ASYNC_WORKERS = 8
 ASYNC_BUDGET_CUBES = 2.5  # the cube cache's budget, in padded small cubes (CST_DEVICE_CUBE_CACHE_BYTES)
 #: (tile_h, tile_w) of the requests: rows gathered on the device (Tp > 256) / every row copied back.
 ASYNC_TILES = ((48, 64), (96, 2200))
-ASYNC_MODES = (("coalesced", {"CST_RENDER_COALESCE": "1"}), ("inline", {"CST_RENDER_COALESCE": "0"}))
 
 
 def async_figure(cube: np.ndarray, seed: int) -> list:
@@ -2320,12 +2316,11 @@ def async_result_key(r: dict) -> tuple:
     return (scalars, r["n_kept"], r["empty"], r["idx"].shape, r["idx"].tobytes(), r["idx_rows"].tobytes())
 
 
-def run_async_requests(panels: list, requests: list, workers: int) -> dict[tuple[int, int], dict]:
-    """Render every request through the render service from *workers* threads; {(panel, tile): result}."""
+def run_async_requests(panels: list, requests: list, workers: int, render) -> dict[tuple[int, int], dict]:
+    """Render every request with *render* (``render(panels, tile_h, tile_w)``) from *workers* threads;
+    {(panel, tile): result}."""
     import queue
     import threading
-
-    from configurable_spectrograms_torch.render.service import coalesced_render
 
     todo: queue.Queue = queue.Queue()
     for req in requests:
@@ -2340,7 +2335,7 @@ def run_async_requests(panels: list, requests: list, workers: int) -> dict[tuple
             except queue.Empty:
                 return
             try:
-                for i, r in zip(idxs, coalesced_render([panels[i] for i in idxs], h, w)):
+                for i, r in zip(idxs, render([panels[i] for i in idxs], h, w)):
                     results[(i, (h, w))] = r
             except BaseException as exc:  # noqa: BLE001 - reported by the caller
                 errors.append(exc)
@@ -2379,9 +2374,10 @@ def run_async(rounds: int = ASYNC_ROUNDS, workers: int = ASYNC_WORKERS, small=AS
               big=ASYNC_BIG, n_small: int = ASYNC_CUBES, sweep_cells: int = ASYNC_SWEEP_CELLS) -> dict:
     """The ``[async]`` phase: the render service under eviction and concurrency, held to the synchronous render.
 
-    Reference: every panel alone through ``device_render_panels`` with the cube cache and the coalescer
-    off.  Then *rounds* rounds, each rendering every panel again, shuffled into requests from *workers*
-    threads, once through the coalescer and once inline, with ``CST_DEVICE_CUBE_CACHE_BYTES`` at
+    Reference: every panel alone through ``device_render_panels`` with the cube cache off.  Then
+    *rounds* rounds, each rendering every panel again, shuffled into requests from *workers* threads,
+    once through the coalescer (``coalesced_render``) and once inline (``device_render_panels`` on each
+    worker thread), with ``CST_DEVICE_CUBE_CACHE_BYTES`` at
     ASYNC_BUDGET_CUBES padded small cubes; between rounds some cubes' owners are replaced by
     equal-valued copies.  Every result must equal the reference bit for bit; the cache must have evicted
     by budget (misses above the distinct cubes) and hit; the staging pool must stay within keep + workers
@@ -2394,9 +2390,11 @@ def run_async(rounds: int = ASYNC_ROUNDS, workers: int = ASYNC_WORKERS, small=AS
 
     from configurable_spectrograms_torch.render import device_cache
     from configurable_spectrograms_torch.render.dispatch import device_render_panels
+    from configurable_spectrograms_torch.render.service import coalesced_render
     from configurable_spectrograms_torch.utils.torch_setup import get_device
 
     device = get_device()
+    modes = (("coalesced", coalesced_render), ("inline", device_render_panels))
 
     def allocated() -> int | None:
         """The caching allocator's live bytes on the card (None in a CPU rehearsal, which checks no memory)."""
@@ -2406,21 +2404,21 @@ def run_async(rounds: int = ASYNC_ROUNDS, workers: int = ASYNC_WORKERS, small=AS
     t_phase = time.perf_counter()
     cubes, panels = async_panels(small, big, n_small, sweep_cells)
     make_s = time.perf_counter() - t_phase
-    keys = ("CST_RENDER_COALESCE", "CST_DEVICE_CUBE_CACHE", "CST_DEVICE_CUBE_CACHE_BYTES")
+    keys = ("CST_DEVICE_CUBE_CACHE", "CST_DEVICE_CUBE_CACHE_BYTES")
     saved = {k: os.environ.get(k) for k in keys}
     device_cache.clear_cube_caches()
     gc.collect()
     before = allocated()
     out = {"panels": len(panels), "runs": [], "swaps": []}
     try:
-        os.environ.update(CST_RENDER_COALESCE="0", CST_DEVICE_CUBE_CACHE="0")
+        os.environ.update(CST_DEVICE_CUBE_CACHE="0")
         t0 = time.perf_counter()
         ref = {}
         for i, p in enumerate(panels):
             for h, w in ASYNC_TILES:
                 ref[(i, (h, w))] = async_result_key(device_render_panels([p], h, w)[0])
         ref_s = time.perf_counter() - t0
-        say("async", reference="each panel alone, cache and coalescer off", panels=len(panels),
+        say("async", reference="each panel alone, inline, cache off", panels=len(panels),
             tiles=len(ASYNC_TILES), cubes=len(cubes), make_s=f"{make_s:.2f}", seconds=f"{ref_s:.2f}")
 
         budget = int(ASYNC_BUDGET_CUBES * padded_cube_bytes(cubes[0]))
@@ -2428,14 +2426,13 @@ def run_async(rounds: int = ASYNC_ROUNDS, workers: int = ASYNC_WORKERS, small=AS
         rng = np.random.default_rng(13)
         pool = device_cache._STAGING
         for rnd in range(rounds):
-            for mode, env in ASYNC_MODES:
-                os.environ.update(env)
+            for mode, render in modes:
                 requests = async_requests(len(panels), rng)
                 distinct = len({id(p.cube) for p in panels})
                 t_before = device_cache.upload_telemetry()
                 pool.reset_peak()
                 t0 = time.perf_counter()
-                got = run_async_requests(panels, requests, workers)
+                got = run_async_requests(panels, requests, workers, render)
                 seconds = time.perf_counter() - t0
                 tel = telemetry_since(t_before)
                 bad = [(i, tile) for (i, tile), r in got.items() if async_result_key(r) != ref[(i, tile)]]
@@ -2626,8 +2623,8 @@ def run_generic(records: dict, mapping: dict, tmp: str) -> None:
 
 
 PANELS_PER_FIGURE = 8  # a pitch grid: 4 categories x full/zoom; an instrument grid: 4 instruments x full/zoom
-#: The render back end off: every render inline on its worker thread, every bucket uploading its cubes, no gate.
-BACKEND_OFF = {"CST_RENDER_COALESCE": "0", "CST_DEVICE_CUBE_CACHE": "0", "CST_HOST_COMPUTE_GATE": "0"}
+#: The render back end's one switch off: every bucket uploads its cubes, none stays resident.
+BACKEND_OFF = {"CST_DEVICE_CUBE_CACHE": "0"}
 
 
 def batch_cwd(path: str, root: str, cusp: str) -> str:
@@ -2744,7 +2741,7 @@ def run_batch(records: dict, mapping: dict, root: str, cusp: str, tmp: str) -> d
     want_pngs = n_orbits * 4 * 10  # orbits x 4 combos x (4 instruments x given/raw pitch grids + 2 grids)
     runs = {}
     # The device backend with the render back end on (the defaults), the host backend, and the device
-    # backend with the coalescer, the cube cache and the compute gate off.
+    # backend with the cube cache off.
     for name, backend, env in (("device", "device", {}), ("host", "host", {}), ("device_backend_off", "device", BACKEND_OFF)):
         cwd = batch_cwd(os.path.join(tmp, f"batch_{name}"), root, cusp)
         K.reset_launches()
@@ -3495,18 +3492,12 @@ def run_entry(records: dict) -> None:
         pixels_one_bin_apart=int(px.sum()), launches=json.dumps(launches).replace(" ", ""))
 
 
-#: The render back end's switches one at a time, for --backend-switches.
-BACKEND_SWITCHES = (
-    ("on", {}),
-    ("cache_off", {"CST_DEVICE_CUBE_CACHE": "0"}),
-    ("coalesce_off", {"CST_RENDER_COALESCE": "0"}),
-    ("gate_off", {"CST_HOST_COMPUTE_GATE": "0"}),
-    ("all_off", BACKEND_OFF),
-)
+#: The render back end's settings, for --backend-switches.
+BACKEND_SWITCHES = (("on", {}), ("cache_off", BACKEND_OFF))
 
 
 def run_backend_switches(rounds: int, small=SHAPES[1], big=SHAPES[0]) -> dict:
-    """The flagship batch on the device backend with each switch of the render back end off alone, *rounds* times.
+    """The flagship batch on the device backend with the cube cache on and off, *rounds* times.
 
     Each round runs every setting of :data:`BACKEND_SWITCHES` once, the
     order rotated by one each round, so a drift of the host's speed
@@ -4326,7 +4317,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true", help="build and check the kernels only")
     ap.add_argument("--backend-switches", type=int, metavar="N", default=0,
-                    help="only time the flagship batch with each render back-end switch off alone, N rounds")
+                    help="only time the flagship batch with the cube cache on and off, N rounds")
     ap.add_argument("--sweep-seeds", metavar="START:COUNT", default=None,
                     help="only build the kernels and sweep them over seeds START .. START + COUNT - 1")
     ap.add_argument("--scale-orbits", type=int, metavar="N", default=None,

@@ -4,19 +4,18 @@ A :class:`SpectroFigure` mirrors the slice of the matplotlib
 ``Figure``/``Axes`` API the reference's pipelines touch, but nothing
 rasterizes until :meth:`SpectroFigure.savefig`/:meth:`render`: the figure
 only accumulates :class:`PanelData` descriptions.  :func:`render_figures`
-pools the panels of many figures into the bucketed dispatch, through the
-render coalescer (:func:`..render.service.coalesced_render`), and the PIL
-compositor draws frames, ticks, labels, colorbars, cusp markers and titles
-around the tiles.  :func:`save_image` encodes with the native PNG encoder
-(:mod:`.fastpng`) and queues the file for paced writeback
-(:mod:`..utils.writeback`).  One host-compute gate slot
-(:mod:`..utils.compute_gate`) spans a figure's render and encode.  PIL is
-imported only by the composite and the non-PNG writes.
+hands the panels of many figures, grouped by tile geometry, to the render
+coalescer (:func:`..render.service.coalesced_render`), whose dispatcher
+thread rasterizes them in pooled device dispatches; the calling thread
+then composites frames, ticks, labels, colorbars, cusp markers and titles
+around the tiles with PIL.  :func:`save_image` encodes with the native PNG
+encoder (:mod:`.fastpng`) on the calling thread and queues the file for
+paced writeback (:mod:`..utils.writeback`).  PIL is imported only by the
+composite and the non-PNG writes.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import Any
 
@@ -115,15 +114,10 @@ class SpectroFigure:
     def savefig(self, path: str, dpi: float | None = None, compress_level: int = 3) -> None:
         """Render and write a PNG (``compress_level``: the deflate level wherever the encoder deflates).
 
-        One compute-gate slot spans render AND encode (the inner gates are
-        re-entrant): releasing between the two would let a sibling worker
-        start its composite mid-figure and steal interpreter slices from
-        this one's encode.
+        The panels render on the coalescer's dispatcher (:func:`render_figures`);
+        the composite and the encode run on the calling thread.
         """
-        from configurable_spectrograms_torch.utils.compute_gate import host_compute_gate
-
-        with host_compute_gate():
-            save_image(self.render(dpi=dpi), path, compress_level=compress_level)
+        save_image(self.render(dpi=dpi), path, compress_level=compress_level)
 
     def render(self, dpi: float | None = None):
         return render_figures([self], dpi=dpi)[0]
@@ -156,7 +150,6 @@ def save_image(image, path: str, compress_level: int = 3) -> None:
     import numpy as np
 
     from configurable_spectrograms_torch.render.fastpng import write_png_rgb
-    from configurable_spectrograms_torch.utils.compute_gate import host_compute_gate
     from configurable_spectrograms_torch.utils.timing import active_stage
     from configurable_spectrograms_torch.utils.writeback import note_written
 
@@ -165,7 +158,7 @@ def save_image(image, path: str, compress_level: int = 3) -> None:
         fmt_needs_rgb = os.path.splitext(path)[1].lower() in (".jpg", ".jpeg", ".bmp")
         (image.convert("RGB") if fmt_needs_rgb and image.mode != "RGB" else image).save(path)
         return
-    with host_compute_gate(), active_stage("png_encode"):
+    with active_stage("png_encode"):
         arr = getattr(image, "_np_canvas", None)
         if arr is None:
             arr = np.asarray(image if image.mode == "RGB" else image.convert("RGB"))
@@ -188,36 +181,29 @@ def render_figures(figures: list["SpectroFigure"], dpi: float | None = None) -> 
     """Render many figures with their panels pooled into shared dispatches.
 
     Panels from every figure group by tile geometry, so an orbit's
-    given/raw figure pair rasterizes in a couple of device programs.
+    given/raw figure pair rasterizes in a couple of device programs.  Each
+    geometry's panels go to the render coalescer, and this thread blocks
+    on their results while the coalescer's dispatcher renders them, pooled
+    with other threads' requests; the composite then runs on this thread.
     Returns one PIL image per figure.
-
-    One gate slot spans the whole render.  It is yielded around the render
-    of the panels only when that render blocks: when the coalescer hands
-    it to its dispatcher thread.  With ``CST_RENDER_COALESCE=0`` the
-    render runs inline on this thread, host compute included, and keeps
-    the slot.
     """
-    from configurable_spectrograms_torch.render.service import coalesced_render, coalescing
-    from configurable_spectrograms_torch.utils.compute_gate import gate_released, host_compute_gate
+    from configurable_spectrograms_torch.render.service import coalesced_render
     from configurable_spectrograms_torch.utils.timing import active_stage
 
     def _composite_one(layout):
-        # Re-entrant under the outer gate; still gates direct callers.
-        with host_compute_gate(), active_stage("composite"):
+        with active_stage("composite"):
             return layout.composite()
 
-    with host_compute_gate():
-        layouts = [_Layout(fig, float(dpi or fig.dpi)) for fig in figures]
-        by_tile: dict[tuple[int, int], list[tuple[int, int]]] = {}
-        for f_i, (fig, layout) in enumerate(zip(figures, layouts)):
-            for a_i, ax in enumerate(fig.axes):
-                ax.result = None
-                if ax.panel is not None:
-                    by_tile.setdefault((layout.tile_h, layout.tile_w), []).append((f_i, a_i))
-        for (tile_h, tile_w), slots in by_tile.items():
-            panels = [figures[f_i].axes[a_i].panel for f_i, a_i in slots]
-            with gate_released() if coalescing() else contextlib.nullcontext():
-                results = coalesced_render(panels, tile_h, tile_w)
-            for (f_i, a_i), res in zip(slots, results):
-                figures[f_i].axes[a_i].result = res
-        return [_composite_one(layout) for layout in layouts]
+    layouts = [_Layout(fig, float(dpi or fig.dpi)) for fig in figures]
+    by_tile: dict[tuple[int, int], list[tuple[int, int]]] = {}
+    for f_i, (fig, layout) in enumerate(zip(figures, layouts)):
+        for a_i, ax in enumerate(fig.axes):
+            ax.result = None
+            if ax.panel is not None:
+                by_tile.setdefault((layout.tile_h, layout.tile_w), []).append((f_i, a_i))
+    for (tile_h, tile_w), slots in by_tile.items():
+        panels = [figures[f_i].axes[a_i].panel for f_i, a_i in slots]
+        results = coalesced_render(panels, tile_h, tile_w)
+        for (f_i, a_i), res in zip(slots, results):
+            figures[f_i].axes[a_i].result = res
+    return [_composite_one(layout) for layout in layouts]

@@ -18,14 +18,14 @@ same-geometry panels in one pooled call:
   once; the dispatcher blocks past that, which simply deepens the next
   coalesce.
 
-Disable with ``CST_RENDER_COALESCE=0`` (requests then render inline on the
-calling thread).  A copy of the JAX package's module without its
+Every non-empty render goes through the coalescer; the synchronous
+:func:`..render.dispatch.device_render_panels` stays the reference it is
+tested against.  A copy of the JAX package's module without its
 ``prefer_latency`` routing, which chose between a TPU link and the host.
 """
 
 from __future__ import annotations
 
-import os
 import threading
 import time
 from concurrent.futures import Future
@@ -46,15 +46,6 @@ class _Request:
 
 #: Batches enqueued but not yet drained (the JAX package's default depth).
 MAX_INFLIGHT = 3
-
-
-def coalescing() -> bool:
-    """Whether a non-empty render is handed to the dispatcher thread (``CST_RENDER_COALESCE`` is not ``0``).
-
-    When it is, the calling thread blocks on a future; when it is not, the
-    render runs inline on the calling thread.
-    """
-    return os.environ.get("CST_RENDER_COALESCE", "1") != "0"
 
 
 class RenderCoalescer:
@@ -78,10 +69,8 @@ class RenderCoalescer:
             threading.Thread(target=self._run, daemon=True, name="render-coalescer").start()
 
     def render(self, panels: list, tile_h: int, tile_w: int) -> list[dict]:
-        from configurable_spectrograms_torch.render.dispatch import device_render_panels
-
-        if not coalescing() or not panels:
-            return device_render_panels(panels, tile_h, tile_w)
+        if not panels:
+            return []
         req = _Request(panels, tile_h, tile_w)
         if timing.ACTIVE is not None:
             req.t_enqueued = time.perf_counter()

@@ -14,7 +14,6 @@ per call, never per lane or element):
   and histogram back; ``prepass_host_collapse``: a file's host collapse
   for the exact tracker; ``prepass_tracker``: a file's tracker add and its
   percentile reads, a regather's decode nested (``fast.extrema``)
-* ``gate_wait``: a compute-gate acquire (``utils.compute_gate``)
 * ``render_wait``: a worker's wait for its panels; ``render_queue_wait``:
   a request's wait in the coalescer's queue and for an in-flight slot,
   measured across threads (``render.service``)

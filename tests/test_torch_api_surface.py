@@ -46,6 +46,8 @@ LEFT_OUT = {
                                        "build fails, and a boolean probe would invite a quiet fallback",
     "render.fastpng.blit_available": "as native_available: the port's blit is always built with the encoder",
     "render.fastpng.blend_available": "as native_available: the port's blend is always built with the encoder",
+    "utils.compute_gate": "the port has no compute gate: it never bound at the port's ≤4 workers on "
+                          "8 cores (PERF.md: the back-end switches and the stage timings), so it was removed",
 }
 
 #: JAX names whose port counterpart has another path.

@@ -269,7 +269,6 @@ def test_telemetry_counts_exactly_under_threads():
 
 def test_renders_from_4_threads_count_every_upload(monkeypatch):
     monkeypatch.setenv("CST_DEVICE_CUBE_CACHE", "0")
-    monkeypatch.setenv("CST_RENDER_COALESCE", "0")
     cubes = [_cube(10 + k) for k in range(8)]
     before = device_cache.upload_telemetry()
     threads = [threading.Thread(target=dispatch.device_render_panels, args=(_panels(c), 16, 24)) for c in cubes]

@@ -62,8 +62,7 @@ def device_path(monkeypatch):
 
     monkeypatch.setenv("CST_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("CST_RENDER_BACKEND", "device")
-    for name in ("CST_RENDER_COALESCE", "CST_HOST_COMPUTE_GATE", "CST_PROFILE_DIR"):
-        monkeypatch.delenv(name, raising=False)
+    monkeypatch.delenv("CST_PROFILE_DIR", raising=False)
     yield timing
     timing.ACTIVE = None
 

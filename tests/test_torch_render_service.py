@@ -1,18 +1,21 @@
-"""The port's render coalescer (``render/service.py``) and host-compute gate (``utils/compute_gate.py``), on the CPU.
+"""The port's render coalescer (``render/service.py``) and the figure path through it, on the CPU.
 
-Coalescer: coalesced results equal direct ones (and the JAX package's on
-the host backends), concurrent requests pool, geometries stay apart, the
-empty request, a drainer failure fails every pooled future, and a batch's
-readback overlaps the next batch.  Gate: it bounds concurrency, nests
-under one slot, ``gate_released`` admits a sibling and restores the
-thread's state after an exception, an interrupted re-acquire mints no
-phantom slot, and ``render_figures`` yields its slot only when the render
-really blocks (coalescing on) -- the two faults of the JAX module.
+Coalesced results equal direct ones (and the JAX package's on the host
+backends), concurrent requests pool, geometries stay apart, the empty
+request, a drainer failure fails every pooled future, and a batch's
+readback overlaps the next batch.  An enqueue that fails fails only its
+geometry's requests; a dispatcher killed by a ``BaseException`` fails its
+whole batch and the next render starts a fresh one; at most
+``MAX_INFLIGHT`` batches hold device work at once.  A figure's panels
+render on the dispatcher and its composite on the caller, and figures
+saved from more threads than cores equal the same figures saved serially,
+byte for byte.
 """
 
+import os
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -21,7 +24,6 @@ import torch
 from configurable_spectrograms_torch.render import dispatch, drain, service
 from configurable_spectrograms_torch.render.panel import PanelData
 from configurable_spectrograms_torch.render.tile import TimeWindow
-from configurable_spectrograms_torch.utils import compute_gate
 
 torch.set_num_threads(1)
 
@@ -157,192 +159,222 @@ def test_batches_overlap(monkeypatch):
     assert elapsed < 1.35, f"two 0.7 s batches took {elapsed:.2f} s -- dispatcher serialized?"
 
 
-def test_coalescing_off_renders_inline(monkeypatch):
-    monkeypatch.setenv("CST_RENDER_COALESCE", "0")
-    threads = []
-    real = dispatch.device_render_panels
+def _hold_the_dispatcher(monkeypatch, fault=None):
+    """Make the first enqueue block until *release* is set; later enqueues call *fault* first.
 
-    def recording(panels, th, tw):
-        threads.append(threading.get_ident())
+    Returns ``(entered, release, calls)``: *entered* is set once the first enqueue blocks, and *calls*
+    records ``(tile_h, tile_w, thread)`` of every enqueue.
+    """
+    real = dispatch.enqueue_render_panels
+    entered, release = threading.Event(), threading.Event()
+    calls = []
+
+    def enqueue(panels, th, tw):
+        calls.append((th, tw, threading.current_thread()))
+        if len(calls) == 1:
+            entered.set()
+            assert release.wait(30)
+        elif fault is not None:
+            fault(th, tw)
         return real(panels, th, tw)
 
-    monkeypatch.setattr(dispatch, "device_render_panels", recording)
-    res = service.RenderCoalescer().render([_panel(np.random.default_rng(4))], 16, 24)
-    assert threads == [threading.get_ident()] and "rgba" in res[0]
+    monkeypatch.setattr(dispatch, "enqueue_render_panels", enqueue)
+    return entered, release, calls
 
 
-# ---------------------------------------------------------------------------
-# the host-compute gate
-# ---------------------------------------------------------------------------
+def _wait_queued(coalescer, n: int) -> None:
+    """Block until *n* requests wait in *coalescer*'s queue, to be drained at the dispatcher's next wake."""
+    deadline = time.monotonic() + 30
+    while True:
+        with coalescer._lock:
+            if len(coalescer._queue) == n:
+                return
+        assert time.monotonic() < deadline, "the requests never queued"
+        time.sleep(0.01)
 
 
-def _join(threads, timeout=20.0):
-    for t in threads:
-        t.join(timeout)
-        assert not t.is_alive(), "a gated thread deadlocked"
+def _submit(fn, *args) -> Future:
+    """``fn(*args)`` on a daemon thread: a render the coalescer never answers fails its test, not the run."""
+    fut = Future()
+
+    def run():
+        try:
+            fut.set_result(fn(*args))
+        except BaseException as exc:  # noqa: BLE001 - read back through the future
+            fut.set_exception(exc)
+
+    threading.Thread(target=run, daemon=True).start()
+    return fut
 
 
-def test_gate_bounds_concurrency(monkeypatch):
-    monkeypatch.setenv("CST_HOST_COMPUTE_GATE", "2")
-    live = {"n": 0, "max": 0}
-    lock = threading.Lock()
+def test_enqueue_failure_fails_only_its_geometry(monkeypatch):
+    failing = {(32, 40)}
 
-    def work():
-        with compute_gate.host_compute_gate():
-            with lock:
-                live["n"] += 1
-                live["max"] = max(live["max"], live["n"])
-            time.sleep(0.05)
-            with lock:
-                live["n"] -= 1
+    def fault(th, tw):
+        if (th, tw) in failing:
+            raise RuntimeError("enqueue failed")
 
-    threads = [threading.Thread(target=work) for _ in range(6)]
+    rng = np.random.default_rng(6)
+    good, bad, later = [_panel(rng)], [_panel(rng)], [_panel(rng)]
+    expected = {"good": dispatch.device_render_panels(good, 16, 24),
+                "later": dispatch.device_render_panels(later, 32, 40)}
+    fresh = service.RenderCoalescer()
+    entered, release, calls = _hold_the_dispatcher(monkeypatch, fault)
+    first = _submit(fresh.render, [_panel(rng)], 16, 24)
+    assert entered.wait(30)
+    f_good = _submit(fresh.render, good, 16, 24)
+    f_bad = _submit(fresh.render, bad, 32, 40)
+    _wait_queued(fresh, 2)
+    release.set()
+    assert "rgba" in first.result(timeout=60)[0]
+    _same(f_good.result(timeout=60), expected["good"])
+    with pytest.raises(RuntimeError, match="enqueue failed"):
+        f_bad.result(timeout=60)
+    assert sorted((th, tw) for th, tw, _ in calls[1:]) == [(16, 24), (32, 40)]  # one wake, both geometries
+    failing.clear()
+    # The next request is served, the failed geometry's too.
+    _same(_submit(fresh.render, later, 32, 40).result(timeout=60), expected["later"])
+
+
+def test_a_dying_dispatcher_fails_its_batch_and_the_next_render_restarts_it(monkeypatch):
+    armed = [True]
+
+    def fault(th, tw):
+        if armed[0]:
+            armed[0] = False
+            raise _Boom("dispatcher killed")
+
+    rng = np.random.default_rng(7)
+    panels = [_panel(rng)]
+    expected = dispatch.device_render_panels(panels, 16, 24)
+    uncaught = []
+    monkeypatch.setattr(threading, "excepthook", lambda args: uncaught.append(args.exc_type))
+    fresh = service.RenderCoalescer()
+    entered, release, calls = _hold_the_dispatcher(monkeypatch, fault)
+    first = _submit(fresh.render, [_panel(rng)], 16, 24)
+    assert entered.wait(30)
+    drained = [_submit(fresh.render, [_panel(rng)], th, tw) for th, tw in ((16, 24), (32, 40), (16, 24))]
+    _wait_queued(fresh, 3)
+    release.set()
+    assert "rgba" in first.result(timeout=60)[0]
+    for f in drained:
+        with pytest.raises(_Boom, match="dispatcher killed"):
+            f.result(timeout=60)
+    dead = calls[0][2]
+    dead.join(30)
+    assert not dead.is_alive() and uncaught == [_Boom]  # the dispatcher re-raised and exited
+    _same(_submit(fresh.render, panels, 16, 24).result(timeout=60), expected)
+    assert calls[-1][2] is not dead and calls[-1][2].name == "render-coalescer"
+
+
+def test_at_most_max_inflight_batches_hold_device_work(monkeypatch):
+    release = threading.Event()
+    enqueued = []
+
+    class Held:
+        def __init__(self, panels):
+            self.panels = panels
+
+        def has_device_work(self):
+            return True
+
+        def wait(self):
+            assert release.wait(30)
+            return [{"panel": p} for p in self.panels]
+
+    def enqueue(panels, th, tw):
+        enqueued.append((th, tw))
+        return Held(panels)
+
+    monkeypatch.setattr(dispatch, "enqueue_render_panels", enqueue)
+    fresh = service.RenderCoalescer()
+    n = service.MAX_INFLIGHT + 2
+    futures = [_submit(fresh.render, [k], 8, 8 + k) for k in range(n)]  # a geometry each: n batches
+    deadline = time.monotonic() + 30
+    while len(enqueued) < service.MAX_INFLIGHT and time.monotonic() < deadline:
+        time.sleep(0.01)
+    time.sleep(0.3)  # room for an enqueue past the bound
+    held = len(enqueued)
+    release.set()
+    got = [f.result(timeout=60) for f in futures]
+    assert held == service.MAX_INFLIGHT, enqueued
+    assert got == [[{"panel": k}] for k in range(n)] and len(enqueued) == n
+
+
+def _figure(seed: int, title: str):
+    from configurable_spectrograms_torch.render.figure import SpectroFigure
+
+    rng = np.random.default_rng(seed)
+    fig = SpectroFigure(figsize=(3.0, 2.0), dpi=40)
+    for k in (1, 2):
+        ax = fig.add_subplot(1, 2, k)
+        ax.panel = _panel(rng, cmap=("viridis", "inferno")[k - 1])
+        ax.set_title(f"{title} {k}")
+    fig.suptitle(title)
+    return fig
+
+
+@pytest.mark.parametrize("backend", ["device", "host"])
+def test_savefig_from_more_threads_than_cores_matches_serial(backend, tmp_path, monkeypatch):
+    """The oversubscribed case: every worker composites and encodes on its own thread at once."""
+    monkeypatch.setenv("CST_RENDER_BACKEND", backend)
+    n = max(8, 2 * len(os.sched_getaffinity(0)))
+    (tmp_path / "serial").mkdir()
+    (tmp_path / "threads").mkdir()
+    for k in range(n):
+        _figure(k, f"figure {k}").savefig(str(tmp_path / "serial" / f"{k}.png"))
+    start = threading.Barrier(n)
+    errors = []
+
+    def work(k):
+        try:
+            fig = _figure(k, f"figure {k}")
+            start.wait(30)
+            fig.savefig(str(tmp_path / "threads" / f"{k}.png"))
+        except BaseException as exc:  # noqa: BLE001 - asserted below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(n)]
     for t in threads:
         t.start()
-    _join(threads)
-    assert live["max"] == 2, live
-    monkeypatch.setenv("CST_HOST_COMPUTE_GATE", "0")
-    with compute_gate.host_compute_gate():
-        assert not compute_gate.holds_slot()  # disabled: no semaphore interaction
+    for t in threads:
+        t.join(120)
+        assert not t.is_alive()
+    assert not errors, errors
+    for d in ("serial", "threads"):
+        assert sorted(p.name for p in (tmp_path / d).iterdir()) == sorted(f"{k}.png" for k in range(n)), d
+    serial = [(tmp_path / "serial" / f"{k}.png").read_bytes() for k in range(n)]
+    assert len(set(serial)) == n  # the figures are distinct
+    assert [(tmp_path / "threads" / f"{k}.png").read_bytes() for k in range(n)] == serial
 
 
-def test_nested_gates_under_one_slot_do_not_deadlock(monkeypatch):
-    monkeypatch.setenv("CST_HOST_COMPUTE_GATE", "1")
-    depths = []
+def test_render_figures_renders_on_the_dispatcher_and_composites_on_the_caller(monkeypatch):
+    from configurable_spectrograms_torch.render.figure import render_figures
+    from configurable_spectrograms_torch.utils import timing
 
-    @compute_gate.gated
-    def inner():
-        depths.append(compute_gate._TLS.depth)
-
-    def work():
-        with compute_gate.host_compute_gate():
-            with compute_gate.host_compute_gate():
-                inner()
-            depths.append(compute_gate._TLS.depth)
-        depths.append(compute_gate._TLS.depth)
-
-    t = threading.Thread(target=work)
-    t.start()
-    _join([t])
-    assert depths == [3, 1, 0]
-    assert compute_gate._gate(1)._value == 1  # the slot is back
-
-
-def test_gate_released_admits_a_sibling_and_restores_after_an_exception(monkeypatch):
-    monkeypatch.setenv("CST_HOST_COMPUTE_GATE", "1")
-    sibling_ran = threading.Event()
-    state = {}
-
-    def sibling():
-        with compute_gate.host_compute_gate():
-            sibling_ran.set()
-
-    def work():
-        with compute_gate.host_compute_gate():
-            with compute_gate.host_compute_gate():
-                try:
-                    with compute_gate.gate_released():
-                        assert not compute_gate.holds_slot()
-                        s = threading.Thread(target=sibling)
-                        s.start()
-                        state["admitted"] = sibling_ran.wait(10)
-                        s.join(10)
-                        raise ValueError("inside the released window")
-                except ValueError:
-                    pass
-                state["after"] = (compute_gate._TLS.depth, compute_gate.holds_slot())
-        state["end"] = (compute_gate._TLS.depth, compute_gate.holds_slot())
-
-    t = threading.Thread(target=work)
-    t.start()
-    _join([t])
-    assert state == {"admitted": True, "after": (2, True), "end": (0, False)}
-    assert compute_gate._gate(1)._value == 1
-
-
-def test_interrupted_reacquire_mints_no_phantom_slot(monkeypatch):
-    """ADVICE r5: a re-acquire interrupted in gate_released must not be released again by the outer gate."""
-
-    class Interruptible(threading.BoundedSemaphore):
-        armed = False
-
-        def acquire(self, *a, **k):
-            if self.armed:
-                self.armed = False
-                raise KeyboardInterrupt
-            return super().acquire(*a, **k)
-
-    monkeypatch.setenv("CST_HOST_COMPUTE_GATE", "2")
-    gate = Interruptible(2)
-    monkeypatch.setattr(compute_gate, "_GATE", gate)
-    monkeypatch.setattr(compute_gate, "_GATE_SLOTS", 2)
-    other_in, other_out = threading.Event(), threading.Event()
-
-    def other():  # holds the second slot throughout
-        with compute_gate.host_compute_gate():
-            other_in.set()
-            other_out.wait(10)
-
-    o = threading.Thread(target=other)
-    o.start()
-    assert other_in.wait(10)
-    outcome = {}
-
-    def work():
-        try:
-            with compute_gate.host_compute_gate():
-                with compute_gate.gate_released():
-                    gate.armed = True
-        except KeyboardInterrupt:
-            outcome["interrupted"] = True
-        outcome["value_after"] = gate._value
-
-    t = threading.Thread(target=work)
-    t.start()
-    _join([t])
-    other_out.set()
-    _join([o])
-    # While `other` held one of the 2 slots, one was free: the interrupted thread holds none and gave
-    # none back twice.  (The JAX module's outer exit released again: 2 free while `other` held one.)
-    assert outcome == {"interrupted": True, "value_after": 1}
-    assert gate._value == 2
-
-
-@pytest.mark.parametrize("coalesce", ["1", "0"])
-def test_render_figures_yields_its_slot_only_when_the_render_blocks(coalesce, monkeypatch):
-    """Coalescing on: a sibling may compute while this render waits.  Off: the inline render keeps the slot."""
-    from configurable_spectrograms_torch.render.figure import SpectroFigure, render_figures
-
-    monkeypatch.setenv("CST_HOST_COMPUTE_GATE", "1")
-    monkeypatch.setenv("CST_RENDER_COALESCE", coalesce)
-    seen = {}
     real = dispatch.enqueue_render_panels
+    enqueue_threads = []
 
-    def probe(panels, th, tw):
-        seen["inline_holds_slot"] = compute_gate.holds_slot()
-        got = threading.Event()
+    def recording(panels, th, tw):
+        enqueue_threads.append(threading.current_thread().name)
+        return real(panels, th, tw)
 
-        def sibling():
-            with compute_gate.host_compute_gate():
-                got.set()
+    monkeypatch.setattr(dispatch, "enqueue_render_panels", recording)
+    monkeypatch.setattr(service, "_COALESCER", service.RenderCoalescer())
+    timer = timing.StageTimer("figure")
+    monkeypatch.setattr(timing, "ACTIVE", timer)
+    seen = {}
 
-        s = threading.Thread(target=sibling, daemon=True)
-        s.start()
-        seen["sibling_admitted"] = got.wait(1.0)
-        pending = real(panels, th, tw)
-        if not seen["sibling_admitted"]:
-            pending._sibling = s  # it runs once this render gives its slot back
-        return pending
+    def caller():
+        seen["ident"] = threading.get_ident()
+        seen["images"] = render_figures([_figure(8, "a"), _figure(9, "b")])
 
-    monkeypatch.setattr(dispatch, "enqueue_render_panels", probe)
-    monkeypatch.setattr(service, "_COALESCER", service.RenderCoalescer())  # its dispatcher binds the probe
-    fig = SpectroFigure(figsize=(3.0, 2.0), dpi=40)
-    fig.add_subplot(1, 1, 1).panel = _panel(np.random.default_rng(5))
-    t = threading.Thread(target=lambda: seen.setdefault("image", render_figures([fig])[0]))
+    t = threading.Thread(target=caller)
     t.start()
-    _join([t], timeout=60)
-    assert seen["image"].size == (120, 80)
-    if coalesce == "1":
-        assert seen["sibling_admitted"] and not seen["inline_holds_slot"]  # the dispatcher thread holds none
-    else:
-        assert seen["inline_holds_slot"] and not seen["sibling_admitted"]
+    t.join(60)
+    assert not t.is_alive()
+    monkeypatch.setattr(timing, "ACTIVE", None)
+    assert [im.size for im in seen["images"]] == [(120, 80)] * 2
+    assert enqueue_threads and set(enqueue_threads) == {"render-coalescer"}
+    composites = [i for i in timer.intervals if i[0] == "composite"]
+    assert len(composites) == 2 and {i[3] for i in composites} == {seen["ident"]}

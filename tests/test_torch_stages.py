@@ -23,10 +23,9 @@ import torch
 torch.set_num_threads(1)
 
 ORBITS = [4100, 4101]
-FLAGSHIP_STAGES = {"cdf_decode", "prepass_stats", "prepass_host_collapse", "prepass_tracker", "gate_wait",
+FLAGSHIP_STAGES = {"cdf_decode", "prepass_stats", "prepass_host_collapse", "prepass_tracker",
                    "render_queue_wait", "device_dispatch", "render_wait", "composite", "png_encode"}
-AUDIO_STAGES = {"wav_load", "gate_wait", "render_queue_wait", "device_dispatch", "render_wait", "composite",
-                "png_encode"}
+AUDIO_STAGES = {"wav_load", "render_queue_wait", "device_dispatch", "render_wait", "composite", "png_encode"}
 
 
 @pytest.fixture(scope="module")
@@ -49,14 +48,14 @@ def archive(tmp_path_factory):
 
 @pytest.fixture
 def port(archive, monkeypatch):
-    """The port on the CPU, device back end, coalescer on, exact pre-pass; resets the stage timer after."""
+    """The port on the CPU, device back end, exact pre-pass; resets the stage timer after."""
     from configurable_spectrograms_torch.data import cdf_utils
     from configurable_spectrograms_torch.utils import timing
 
     monkeypatch.setenv("CST_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("CST_RENDER_BACKEND", "device")
     monkeypatch.setenv("CST_CUSP_CSV", archive["cusp"])
-    for name in ("CST_RENDER_COALESCE", "CST_EXTREMA_EXACT", "CST_HOST_COMPUTE_GATE", "CST_PROFILE_DIR"):
+    for name in ("CST_EXTREMA_EXACT", "CST_PROFILE_DIR"):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setattr(cdf_utils, "filtered_orbits_cache", {})
     cdf_utils.clear_dataset_cache()
@@ -141,10 +140,9 @@ def test_no_active_timer_records_nothing_and_reads_no_clock(archive, port, tmp_p
     assert reads == [] and kept == []
 
 
-def test_gate_and_queue_waits_from_many_threads_lose_no_update(port, monkeypatch):
+def test_queue_waits_from_many_threads_lose_no_update(port, monkeypatch):
     from configurable_spectrograms_torch.render import dispatch
     from configurable_spectrograms_torch.render.service import RenderCoalescer
-    from configurable_spectrograms_torch.utils.compute_gate import gate_released, host_compute_gate
 
     class Done:
         def __init__(self, panels):
@@ -158,7 +156,6 @@ def test_gate_and_queue_waits_from_many_threads_lose_no_update(port, monkeypatch
             return [{"panel": p} for p in self.panels]
 
     monkeypatch.setattr(dispatch, "enqueue_render_panels", lambda panels, h, w: Done(panels))
-    monkeypatch.setenv("CST_HOST_COMPUTE_GATE", "2")
     coalescer = RenderCoalescer()
     timer = port.ACTIVE = port.StageTimer("threads")
     n_threads, n_calls = 6, 40
@@ -166,9 +163,7 @@ def test_gate_and_queue_waits_from_many_threads_lose_no_update(port, monkeypatch
 
     def worker(k):
         for j in range(n_calls):
-            with host_compute_gate():
-                with gate_released():
-                    got.append(coalescer.render([(k, j)], 4, 4) == [{"panel": (k, j)}])
+            got.append(coalescer.render([(k, j)], 4, 4) == [{"panel": (k, j)}])
 
     threads = [threading.Thread(target=worker, args=(k,)) for k in range(n_threads)]
     for t in threads:
@@ -178,10 +173,8 @@ def test_gate_and_queue_waits_from_many_threads_lose_no_update(port, monkeypatch
     port.ACTIVE = None
     n = n_threads * n_calls
     assert got == [True] * n
-    assert timer.counts["gate_wait"] == 2 * n  # the outer acquire and the re-acquire after the render
     assert timer.counts["render_queue_wait"] == timer.counts["render_wait"] == n
-    assert sum(1 for i in timer.intervals if i[0] == "gate_wait") == 2 * n
-    assert len({i[3] for i in timer.intervals if i[0] == "gate_wait"}) == n_threads
+    assert len({i[3] for i in timer.intervals if i[0] == "render_wait"}) == n_threads
     assert sum(1 for i in timer.intervals if i[0] == "render_queue_wait") == n
     for name in ("render_queue_wait", "render_wait"):
         assert all(w >= 0 for w in [t1 - t0 for s, t0, t1, _ in timer.intervals if s == name])
@@ -201,4 +194,4 @@ def test_profile_dir_traces_the_prepass_and_the_workers_with_their_stages(archiv
     assert prepass, sorted(tids)
     workers = tids.get("composite", set()) | tids.get("png_encode", set())
     assert workers and not workers & prepass, sorted(tids)  # rendered on the pool's threads
-    assert {"cdf_decode", "gate_wait", "render_wait", "device_dispatch"} <= set(tids)
+    assert {"cdf_decode", "render_wait", "device_dispatch"} <= set(tids)
