@@ -7,9 +7,11 @@ in turn, cycling, through ``cli.audio.render_audio_spectrogram`` at the
 traffic's frame length, hop and mel bins with the CLI's other defaults
 (``fft``, linear y, log z, magma, 150 DPI, the device back end), each
 figure to a PNG of its own, until the window's seconds are reached; the
-figure running then is finished.  A new load makes new host arrays, so no
-cache of the port serves one figure from another.  Traced runs keep the
-matrix shape of every percentile-quantize launch for its roofline.
+figure running then is finished.  ``audio_figure_s`` is the window's
+seconds over the figures it finished, as in :mod:`drivers.audio_cli`.  A
+new load makes new host arrays, so no cache of the port serves one figure
+from another.  Traced runs keep the matrix shape of every
+percentile-quantize launch for its roofline.
 
 Afterwards every figure's PNG must exist and its y axis must be the mel
 centres; the window's first figure and a share of the others drawn from
@@ -144,11 +146,12 @@ class Driver:
                 unwrap()
         self.launches = self.kernels.LAUNCHES.get("percentile_quantize", 0) - launches0
         failed = sum(not f["ok"] for f in self.figures)
-        log = {"figures": len(self.figures), "seconds": elapsed, "figure_s_mean": elapsed / len(self.figures),
+        figure_s = elapsed / len(self.figures)
+        log = {"figures": len(self.figures), "seconds": elapsed, "figure_s_mean": figure_s,
                "figure_s": [round(f["seconds"], 3) for f in self.figures],
                "percentile_quantize_launches": self.launches}
-        return {"e2e": {}, "attempted": len(self.figures), "failed": failed, "log": log, "timer": self.timer,
-                "launch_shapes": self.launch_shapes}
+        return {"e2e": {"audio_figure_s": figure_s}, "attempted": len(self.figures), "failed": failed, "log": log,
+                "timer": self.timer, "launch_shapes": self.launch_shapes}
 
     def _keep_launch_shapes(self):
         """Keep the matrix shape of each percentile-quantize call (traced runs only); returns the undo.

@@ -4,8 +4,9 @@ Spans are (name, start, end) on the host's ``perf_counter`` clock, kept in
 memory.  The device trace is ``torch.profiler`` with CUDA activity only
 (CUPTI): its kernels, copies and sets, reduced to the seconds the device
 was busy (the union of their intervals), the seconds by operation name,
-and the longest gaps between them, named by the host span open at the
-time.  A spin kernel launched at a host time stamp ties the two clocks.
+and the longest gaps between them, named by the port's stage open at the
+time (the driver's host span where no stage is).  A spin kernel launched
+at a host time stamp ties the two clocks.
 """
 
 from __future__ import annotations
@@ -50,11 +51,20 @@ class Recorder:
 
     def open_at(self, t: float) -> str:
         """The innermost (latest started) span open at host time *t*, or "harness"."""
-        best = None
-        for n, t0, t1 in self.spans:
-            if t0 <= t <= t1 and (best is None or t0 > best[1]):
-                best = (n, t0)
-        return best[0] if best else "harness"
+        return open_at(self.spans, t) or "harness"
+
+
+def open_at(intervals, t: float) -> str | None:
+    """The name of the latest-started of *intervals* ``(name, t0, t1, ...)`` that contains host time *t*.
+
+    Of a ``StageTimer``'s ``(stage, t0, t1, thread)`` intervals, that is the
+    innermost port stage open at *t* on any thread.  None where none contains *t*.
+    """
+    best = None
+    for name, t0, t1, *_ in intervals:
+        if t0 <= t <= t1 and (best is None or t0 > best[1]):
+            best = (name, t0)
+    return best[0] if best else None
 
 
 class DeviceTrace:
@@ -86,8 +96,13 @@ class DeviceTrace:
         self.prof.export_chrome_trace(self.path)
         self.prof = None
 
-    def summary(self, rec: Recorder, top: int = 10) -> dict:
-        """busy_s, window_s, seconds by operation, and the longest idle gaps by host span."""
+    def summary(self, rec: Recorder, timer=None, top: int = 10) -> dict:
+        """busy_s, window_s, seconds by operation, and the longest idle gaps.
+
+        A gap is named by the port's stage open at its midpoint in *timer*
+        (the window's ``utils.timing.StageTimer``), or else by the driver's
+        span open then (:meth:`Recorder.open_at`).
+        """
         with open(self.path) as f:
             events = json.load(f).get("traceEvents", [])
         os.unlink(self.path)
@@ -121,6 +136,7 @@ class DeviceTrace:
             gaps.append((self.t_end - cursor, 0.5 * (cursor + self.t_end)))
         gaps.sort(reverse=True)
         ops = sorted(by_op.items(), key=lambda kv: -kv[1])
+        stages = list(timer.intervals) if timer is not None else []
         return {"busy_s": busy, "window_s": self.t_end - self.t_anchor, "by_op": by_op,
                 "device_ops": [[n, s] for n, s in ops[:top]],
-                "idle_gaps": [[rec.open_at(t), s] for s, t in gaps[:top]]}
+                "idle_gaps": [[open_at(stages, t) or rec.open_at(t), s] for s, t in gaps[:top]]}

@@ -174,7 +174,7 @@ def run(args, bench: dict, entry: dict, spec: dict, scratch: str, require_cuda: 
     result = {"correct": False, "attempted": outcome["attempted"], "failed": outcome["failed"]}
     breakdown = None
     if trace:
-        summary = trace.summary(rec)
+        summary = trace.summary(rec, outcome.get("timer"))
         device.update(busy_s=summary["busy_s"], window_s=summary["window_s"])
         record = {"recorder": rec, "outcome": outcome, "device": summary}
         metrics = {}

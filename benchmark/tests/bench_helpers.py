@@ -30,8 +30,11 @@ def traffic(cell: str, **changes) -> dict:
 
 
 def run_cell(cell: str, seed: int = 2147483659, seconds: float = 0.05, trace: int = 0, cuda: bool = False,
-             **changes) -> tuple[int, dict | None]:
-    """run.main at a tiny size, on the CPU (the port's plain kernels) unless *cuda*: (exit code, result or None)."""
+             lines: list[str] | None = None, **changes) -> tuple[int, dict | None]:
+    """run.main at a tiny size, on the CPU (the port's plain kernels) unless *cuda*: (exit code, result or None).
+
+    *lines*, where given, receives the run's standard output, line by line.
+    """
     import run
 
     os.environ["CST_TORCH_DEVICE"] = "cuda" if cuda else "cpu"
@@ -39,8 +42,10 @@ def run_cell(cell: str, seed: int = 2147483659, seconds: float = 0.05, trace: in
     with contextlib.redirect_stdout(out):
         code = run.main(["--workload", cell, "--seed", str(seed), "--seconds", str(seconds), "--trace", str(trace)],
                         require_cuda=cuda, traffic=traffic(cell, **changes))
-    lines = out.getvalue().strip().splitlines()
+    printed = out.getvalue().strip().splitlines()
+    if lines is not None:
+        lines.extend(printed)
     try:
-        return code, json.loads(lines[-1])
+        return code, json.loads(printed[-1])
     except (IndexError, json.JSONDecodeError):
         return code, None

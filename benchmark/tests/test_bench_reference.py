@@ -30,7 +30,7 @@ def test_audio_figures_match_the_reference():
     assert result["correct"] and result["attempted"] >= 2
     assert c["figures_missing"] == 0 and c["stft_err_ratio"] < 0.05 and c["figures_rows_compared"] >= 1
     assert c["tile_pixels_off_pct"] < 0.05 and c["tile_max_bins_off"] <= 1
-    assert set(result["metrics"]) == {"setup_s", "audio_figure_s", "peak_rss_gib"}
+    assert set(result["metrics"]) == {"setup_s", "peak_rss_gib"}
 
 
 def test_device_trace_summary_reads_busy_time_gaps_and_operations(tmp_path):
@@ -52,3 +52,30 @@ def test_device_trace_summary_reads_busy_time_gaps_and_operations(tmp_path):
     assert s["device_ops"][0][0] == "cst_fused_map_kernel"
     assert [n for n, _ in s["idle_gaps"][:2]] == ["render", "render"]
     assert abs(s["idle_gaps"][0][1] - 0.045) < 1e-9 and abs(s["idle_gaps"][1][1] - 0.041) < 1e-9
+
+
+def test_idle_gaps_are_named_by_the_innermost_port_stage(tmp_path):
+    """A gap takes the latest-started stage of any thread open at its midpoint, else the driver's span."""
+    from configurable_spectrograms_torch.utils.timing import StageTimer
+    from harness.trace import DeviceTrace, Recorder
+
+    rec = Recorder()
+    rec.spans += [("figure", 100.0, 100.1)]
+    timer = StageTimer("synthetic")
+    timer.intervals += [("wav_load", 100.000, 100.025, 1), ("mel_filterbank", 100.015, 100.024, 1),
+                        ("render_wait", 100.040, 100.060, 1), ("device_dispatch", 100.045, 100.058, 2),
+                        ("composite", 100.061, 100.080, 1)]
+    trace = DeviceTrace(str(tmp_path))
+    trace.t_anchor, trace.t_end = 100.0, 100.1
+    busy = [(100.010, 100.012), (100.030, 100.031), (100.070, 100.071)]
+    events = [{"cat": "kernel", "name": "spin_kernel", "ts": 5000.0, "dur": 1.0}]
+    events += [{"cat": "kernel", "name": "k", "ts": 5000.0 + (t0 - 100.0) * 1e6, "dur": (t1 - t0) * 1e6}
+               for t0, t1 in busy]
+
+    def gaps(timer):
+        (tmp_path / "device_trace.json").write_text(json.dumps({"traceEvents": events}))
+        return [(n, round(s, 6)) for n, s in trace.summary(rec, timer)["idle_gaps"]]
+
+    assert gaps(timer) == [("device_dispatch", 0.039), ("figure", 0.029), ("mel_filterbank", 0.018),
+                           ("wav_load", 0.01)]
+    assert gaps(None) == [("figure", 0.039), ("figure", 0.029), ("figure", 0.018), ("figure", 0.01)]

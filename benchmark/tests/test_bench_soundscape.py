@@ -27,13 +27,17 @@ def _failed(got: dict) -> set[str]:
 
 
 def test_driver_is_correct_on_the_cpu():
-    code, result = run_cell(CELL, seconds=0.5, sample_figures=2)
+    printed = []
+    code, result = run_cell(CELL, seconds=0.5, sample_figures=2, lines=printed)
     assert code == 0 and result is not None
     c = {k: v["value"] for k, v in result["checks"].items()}
     assert result["correct"] and result["failed"] == 0 and result["attempted"] >= 2, result["checks"]
     assert c["mel_err_ratio"] < 0.05 and c["mel_centres_rel_err"] < 1e-7 and c["figures_rows_compared"] >= 1
     assert c["figures_judged"] == 2 and c["tile_pixels_off_pct"] < 0.05 and c["tile_max_bins_off"] <= 1
-    assert set(result["metrics"]) == {"setup_s", "peak_rss_gib"}
+    assert set(result["metrics"]) == {"setup_s", "audio_figure_s", "peak_rss_gib"}
+    window = json.loads(next(line for line in printed if line.startswith("[window] "))[len("[window] "):])
+    assert window["figures"] == result["attempted"]
+    assert result["metrics"]["audio_figure_s"]["value"] == window["seconds"] / window["figures"]
 
 
 @pytest.mark.parametrize("seed", [5, 3000000007])
@@ -96,6 +100,46 @@ def test_stage_reader_divides_by_the_figures(metric, stage):
     assert _read(metric, {"recorder": None, "outcome": {"timer": timer, "attempted": 4}, "device": None}) == 0.75
     assert _read(metric, {"recorder": None, "outcome": {"timer": StageTimer("empty"), "attempted": 4},
                           "device": None}) is None
+
+
+def _mel_record() -> dict:
+    """A traced mel window of 4 figures: each of the port's stages 0.5 s a call, and the device busy 15% of 50 s."""
+    from configurable_spectrograms_torch.utils.timing import StageTimer
+
+    timer = StageTimer("synthetic")
+    for stage in ("wav_load", "png_encode", "composite", "device_dispatch", "render_wait"):
+        for k in range(4):
+            timer.add(stage, 0.5, 100.0 + k)
+    return {"recorder": None, "outcome": {"timer": timer, "attempted": 4},
+            "device": {"busy_s": 7.5, "window_s": 50.0, "by_op": {}}}
+
+
+SHARED_READERS = {"wav_load_s_per_figure": 0.5, "png_encode_s_per_figure.audio": 0.5,
+                  "composite_s_per_figure.audio": 0.5, "dispatch_s_per_batch.audio": 0.5,
+                  "render_wait_s_per_request.audio": 0.5, "device_idle_share.audio": 85.0}
+
+
+@pytest.mark.parametrize("metric", sorted(SHARED_READERS))
+def test_shared_audio_reader_reads_the_mel_cell(metric):
+    """Each of the 5 s cell's stage readers has a ``.soundscape`` twin in the mel cell that moves its figure time.
+
+    The 5 s cell reports no ``audio_figure_s`` (its runs spread too widely for the bound), so the two
+    cells' readers of one stage are split by the end-to-end metric they move; both read the same.
+    """
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    twin = metric.removesuffix(".audio") + ".soundscape"
+    entries = {m["name"]: m for m in bench["per_layer"]}
+    assert entries[metric]["workloads"] == ["audio_wav.clips_5s"] and entries[metric]["moves"] == "peak_rss_gib"
+    assert entries[twin]["workloads"] == [CELL] and entries[twin]["moves"] == "audio_figure_s"
+    assert _read(twin, _mel_record()) == pytest.approx(SHARED_READERS[metric])
+    assert _read(metric, _mel_record()) == pytest.approx(SHARED_READERS[metric])
+
+
+def test_clip_figure_reader_reads_the_traced_window_and_nothing_without_it():
+    """The 5 s cell's figure time, per layer: the window's seconds over its figures, from the traced run."""
+    assert _read("clip_figure_s", {"recorder": None, "outcome": {"e2e": {"audio_figure_s": 0.0175}},
+                                   "device": None}) == 0.0175
+    assert _read("clip_figure_s", {"recorder": None, "outcome": {"e2e": {}}, "device": None}) is None
 
 
 def test_figure_reader_and_the_roofline():

@@ -8,10 +8,11 @@ from bench_helpers import BENCH
 PER_FILE = {"decode_s_per_file": "cdf_decode", "prepass_stats_s_per_file": "prepass_stats",
             "prepass_host_collapse_s_per_file": "prepass_host_collapse",
             "prepass_tracker_s_per_file": "prepass_tracker"}
-PER_FIGURE = {"gate_wait_s_per_figure": "gate_wait", "wav_load_s_per_figure": "wav_load"}
+PER_FIGURE = {"wav_load_s_per_figure": "wav_load"}
 PER_CALL = {"render_queue_wait_s_per_request": "render_queue_wait", "dispatch_s_per_batch.archive": "device_dispatch",
             "dispatch_s_per_batch.audio": "device_dispatch", "render_wait_s_per_request.archive": "render_wait",
-            "render_wait_s_per_request.audio": "render_wait"}
+            "render_wait_s_per_request.audio": "render_wait", "dispatch_s_per_batch.soundscape": "device_dispatch",
+            "render_wait_s_per_request.soundscape": "render_wait", "png_encode_s_per_figure.soundscape": "png_encode"}
 STAGES = sorted({*PER_FILE.values(), *PER_FIGURE.values(), *PER_CALL.values()})
 
 
