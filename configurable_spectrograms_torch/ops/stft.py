@@ -166,7 +166,7 @@ def host_stft_magnitude(
 
 
 def audio_spectrogram_dataset(
-    signal: np.ndarray,
+    signal: np.ndarray | torch.Tensor,
     sample_rate: int,
     frame_length: int = 1024,
     hop_length: int = 256,
@@ -182,7 +182,9 @@ def audio_spectrogram_dataset(
     (FFT bins) or mel centre frequencies.  ``CST_RENDER_BACKEND=host``
     computes the STFT in numpy (:func:`host_stft_magnitude`); ``device``
     computes it with torch on :func:`..utils.torch_setup.get_device`, and a
-    CUDA error raises (no fallback to the host).
+    CUDA error raises (no fallback to the host).  On ``device`` *signal* may
+    also be a float32 tensor already on that device (the audio CLI's 16-bit
+    path), which is used as it is.
     """
     from configurable_spectrograms_torch.render.backend import render_backend
     from configurable_spectrograms_torch.utils.timing import active_stage
@@ -203,7 +205,10 @@ def audio_spectrogram_dataset(
     else:
         from configurable_spectrograms_torch.utils.torch_setup import get_device
 
-        x = torch.from_numpy(np.ascontiguousarray(signal, np.float32)).to(get_device())
+        if isinstance(signal, torch.Tensor):
+            x = signal
+        else:
+            x = torch.from_numpy(np.ascontiguousarray(signal, np.float32)).to(get_device())
         if n_mels is not None:
             spec = mel_spectrogram(x, sample_rate, frame_length, hop_length, n_mels, power, method)
         else:

@@ -24,7 +24,10 @@ per call, never per lane or element):
   (``render.figure``); ``png_stripe``: one row stripe of that encode, run
   on the encoder's native threads and added with its interval by
   ``render.fastpng.write_png_rgb``
-* ``wav_load``: the audio CLI's WAV read and mix (``cli.audio``)
+* ``wav_load``: the audio CLI's WAV parse and read, and on the int16 path
+  the copy's enqueue (``cli.audio``); ``pcm_upload``: inside it, on that
+  path only (a 16-bit mono WAV on the device back end), the enqueue of the
+  int16 samples' copy to the device and of their widening to float32
 * ``mel_filterbank``: a build of the mel weights (``ops.stft``: once in
   ``audio_spectrogram_dataset`` for the centres, once more in
   ``mel_spectrogram`` with the weights' upload, which waits for the STFT

@@ -291,6 +291,35 @@ def test_audio_cli_as_a_module_on_the_cpu(wav_file, tmp_path):
 
 
 @pytest.mark.parametrize("backend", ["device", "host"])
+def test_audio_cli_frees_each_figures_spectrogram_without_the_cyclic_collector(backend, wav_file, tmp_path,
+                                                                               monkeypatch):
+    """The figure and its axes refer to each other: the CLI clears them, so reference counts free the data."""
+    import gc
+    import weakref
+
+    from configurable_spectrograms_torch.cli import audio
+
+    monkeypatch.setenv("CST_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("CST_RENDER_BACKEND", backend)
+    real, kept = audio.audio_spectrogram_dataset, []
+
+    def keep(*a, **k):
+        ds = real(*a, **k)
+        kept.append(weakref.ref(ds["data"]))
+        return ds
+
+    monkeypatch.setattr(audio, "audio_spectrogram_dataset", keep)
+    gc.disable()
+    try:
+        for k in range(3):
+            assert audio.render_audio_spectrogram(wav_file, str(tmp_path / f"f{k}.png"), 256, 64, n_mels=16)
+        # The render back end may hold the last figure's panels until the next render.
+        assert [ref() is None for ref in kept[:-1]] == [True, True]
+    finally:
+        gc.enable()
+
+
+@pytest.mark.parametrize("backend", ["device", "host"])
 def test_recommended_workers(backend, monkeypatch):
     from configurable_spectrograms_torch.render import compositor
     from configurable_spectrograms_torch.render.backend import recommended_workers
